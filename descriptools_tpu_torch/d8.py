@@ -1,0 +1,82 @@
+"""Vectorised D8 flow-direction machinery (torch).
+
+Counterpart of ``descriptools_tpu/d8.py``: the same select chains in the
+same order, so every output is bitwise the JAX one.
+
+Conventions: (row, col) tensors; ESRI codes 1=E 2=SE 4=S 8=SW 16=W 32=NW
+64=N 128=NE; diagonal steps cost px*sqrt(2).
+"""
+
+import torch
+
+from descriptools_tpu_torch.constants import D8_CODES, D8_DX, D8_DY, D8_STEP
+
+
+def decode(fdr):
+    """Decode a D8 raster into (dy, dx, step_pixels, valid).
+
+    Invalid codes (0 or anything not in the D8 set) give dy=dx=0, step=0,
+    valid=False.
+    """
+    dev = fdr.device
+    dy = torch.zeros(fdr.shape, dtype=torch.int32, device=dev)
+    dx = torch.zeros(fdr.shape, dtype=torch.int32, device=dev)
+    step = torch.zeros(fdr.shape, dtype=torch.float32, device=dev)
+    valid = torch.zeros(fdr.shape, dtype=torch.bool, device=dev)
+    for code, cdy, cdx, cs in zip(D8_CODES, D8_DY, D8_DX, D8_STEP):
+        hit = fdr == int(code)
+        dy = torch.where(hit, int(cdy), dy)
+        dx = torch.where(hit, int(cdx), dx)
+        step = torch.where(hit, float(cs), step)
+        valid = valid | hit
+    return dy, dx, step, valid
+
+
+def successor(fdr, rows, cols):
+    """Per-cell D8 successor as flat indices, plus step length & flags.
+
+    Returns (succ, step_pixels, in_bounds, valid), all (rows, cols):
+      - ``succ``: int32 flat index of the D8 target; cells whose step is
+        invalid or leaves the grid keep ``succ = self``;
+      - ``step_pixels``: step length in pixels (0 where no step is taken);
+      - ``in_bounds``: True where the D8 target stays inside the grid;
+      - ``valid``: True where the D8 code itself decodes.
+    """
+    dev = fdr.device
+    dy, dx, step, valid = decode(fdr)
+    i = torch.arange(rows, dtype=torch.int32, device=dev)[:, None]
+    j = torch.arange(cols, dtype=torch.int32, device=dev)[None, :]
+    ty = i + dy
+    tx = j + dx
+    inside = (ty >= 0) & (ty < rows) & (tx >= 0) & (tx < cols)
+    ok = valid & inside
+    succ = torch.where(ok, ty * cols + tx, i * cols + j).to(torch.int32)
+    step = torch.where(ok, step, 0.0)
+    return succ, step, ok, valid
+
+
+def pad1(arr, fill):
+    """``arr`` with a 1-cell ring of ``fill`` around it (any dtype)."""
+    rows, cols = arr.shape
+    out = torch.full((rows + 2, cols + 2), fill, dtype=arr.dtype, device=arr.device)
+    out[1:-1, 1:-1] = arr
+    return out
+
+
+def pull8(fdr, arrays, fills):
+    """Per-cell pull of values from each cell's D8 successor, gather-free.
+
+    ``pulled[c] = X[c + delta(fdr[c])]`` as eight shifted-tensor selects in
+    D8_CODES order.  Cells with invalid/no direction keep their own value;
+    ``fills`` is the value seen when the successor is off the grid.
+    """
+    rows, cols = fdr.shape
+    outs = []
+    for arr, fill in zip(arrays, fills):
+        padded = pad1(arr, fill)
+        acc = arr
+        for code, dy, dx in zip(D8_CODES, D8_DY, D8_DX):
+            nbr = padded[1 + dy : 1 + dy + rows, 1 + dx : 1 + dx + cols]
+            acc = torch.where(fdr == int(code), nbr, acc)
+        outs.append(acc)
+    return outs
