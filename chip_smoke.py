@@ -10,12 +10,20 @@ Phases, each printing its own lines:
 1. every CUDA kernel against its plain PyTorch version on the card, at the
    basin's shape (2178x1534, synthetic) and on adversarial fixtures
    (long northward walks, with and without ascending bumps; a lateral
-   channel; a 40000-step serpentine);
-2. the slice: ``descriptor_suite`` on CUDA tensors (the kernels run), then
-   ``classify_flood``, held against the ``engine="torch"`` run on the same
-   card, with every kernel's launch count checked;
+   channel; a 40000-step serpentine); the tiled path's kernels on tile
+   operands (basin windows and tiles, a lateral channel cut into tiles, a
+   flat eastward walk and a ramp cut by a window edge);
+2. the in-core path: ``descriptor_suite`` on CUDA tensors (the kernels
+   run), then ``classify_flood``, held against the ``engine="torch"`` run
+   on the same card, with every kernel's launch count checked;
 3. timing: the suite and each kernel beside its plain version, median of 5
-   runs after one warm-up, with CUDA events.
+   runs after one warm-up, with CUDA events;
+4. the out-of-core path: ``tiled_suite`` at 8192x8192 in 4096x4096 tiles
+   through the tile kernels, held against the in-core suite of the same
+   grid; a forced truncation retry; ``tiled_classify_flood`` against
+   ``classify_flood``; pass times, host<->device bytes and the tile
+   kernels against their plain versions on one 4096x4096 tile's operands,
+   checked and timed.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises, so
@@ -53,7 +61,23 @@ KERNELS = {
         source="descriptools_tpu_torch/csrc/walk.cu",
         replaces="descriptools_tpu/ops/pallas/walk_vmem.py:264",
     ),
+    "stencil_padded": dict(
+        source="descriptools_tpu_torch/csrc/stencil.cu",
+        replaces="descriptools_tpu/ops/pallas/stencil.py:40",
+    ),
+    "absorbing_walk": dict(
+        source="descriptools_tpu_torch/csrc/walk.cu",
+        replaces="descriptools_tpu/ops/pallas/walk_vmem.py:704, descriptools_tpu/ops/pallas/walk.py:461",
+    ),
+    "downslope_walk_tracked": dict(
+        source="descriptools_tpu_torch/csrc/walk.cu",
+        replaces="descriptools_tpu/ops/pallas/walk.py:120, descriptools_tpu/ops/pallas/walk_vmem.py:506 (trunc0 mode)",
+    ),
 }
+IN_CORE = ("stencil", "downslope_walk", "flow_walk")
+TILED = ("stencil_padded", "absorbing_walk", "downslope_walk_tracked")
+BIG = 8192  # the tiled phase's grid side: 67,108,864 cells
+TILE = 4096  # the JAX package's default tile side
 
 
 def card_line():
@@ -142,6 +166,15 @@ def lateral_channel(rows=384, cols=128):
     river = np.zeros((rows, cols), np.int8)
     river[0, -1] = 1
     return fdr, river
+
+
+def flat_east(rows, cols, bump):
+    """A gentle eastward descent (0.01 m per cell, ed 5: 500-step walks);
+    an ascending bump at one column makes it non-monotone."""
+    dem = np.broadcast_to((1000.0 - 0.01 * np.arange(cols)).astype(np.float32), (rows, cols)).copy()
+    if bump:
+        dem[:, bump] += 3.0
+    return dem, np.full((rows, cols), 1, np.uint8)
 
 
 def serpentine(rows=200, cols=200):
@@ -256,7 +289,7 @@ def phase_slice(dev, basin):
     out = pipeline.descriptor_suite(*inputs, pipeline.PipelineConfig())
     torch.cuda.synchronize()
     launches = launch_counters()
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in IN_CORE if launches[k] == 0]
     if missing:
         raise AssertionError(f"the suite launched no {missing} kernel")
     plain = pipeline.descriptor_suite(*inputs, pipeline.PipelineConfig(engine="torch"))
@@ -295,7 +328,7 @@ def phase_slice(dev, basin):
     print(f"suite: launches {launches}; landed {int(landed.sum())} of {idx.numel()} cells")
     print(f"classify_flood: threshold {th} Fit {fit!r} Correctness {corr!r} "
           f"(identical to the plain engine); host time {classify_s:.3f} s")
-    return inputs, launches
+    return inputs, launches, out["hand"], got
 
 
 def phase_timing(dev, inputs, card):
@@ -362,6 +395,257 @@ def phase_timing(dev, inputs, card):
     return times
 
 
+def phase_tile_kernels(dev, basin, errs):
+    """The tiled path's kernels against their plain versions, bitwise."""
+    from descriptools_tpu_torch.ops import downslope as down
+    from descriptools_tpu_torch.ops import flow
+    from descriptools_tpu_torch.ops.cuda import stencil as st
+    from descriptools_tpu_torch.ops.cuda import walk
+    from descriptools_tpu_torch.parallel import boundary
+
+    def stencil_case(label, padded, fac):
+        got = st.stencil_padded(padded, fac, 12.5, 0.1)
+        want = st.stencil_padded_plain(padded, fac, 12.5, 0.1)
+        e = check_bitwise(f"stencil_padded/{label}/slope", got[0], want[0])
+        for name, g, w in zip(st.NAMES[1:], got[1:], want[1:]):
+            e = max(e, check_close(f"stencil_padded/{label}/{name}", g, w))
+        errs["stencil_padded"] = max(errs["stencil_padded"], e)
+        print(f"kernel stencil_padded {label:<34} matches plain (slope bitwise, max_abs_err {e:.3g})")
+        return got
+
+    dem_f = torch.as_tensor(basin["dem"].astype(np.float32), device=dev)
+    fac = torch.as_tensor(basin["fac"], device=dev)
+    stencil_case("basin window 1024x1024, real halo",
+                 dem_f[499:1525, 199:1225].contiguous(), fac[500:1524, 200:1224])
+    whole = torch.full((ROWS + 2, COLS + 2), -100.0, device=dev)
+    whole[1:-1, 1:-1] = dem_f
+    got = stencil_case(f"basin {ROWS}x{COLS}, NoData ring", whole, fac)
+    check_bitwise("stencil_padded/whole basin vs in-core stencil", got[0], st.stencil(dem_f, fac, 12.5, 0.1)[0])
+
+    def absorbing_check(label, fdr_eff, code0, max_steps):
+        got = walk.absorbing_walk(fdr_eff, code0, max_steps)
+        want = flow.doubling_walk(fdr_eff, code0, max_steps)
+        for name, g, wnt in zip(("code", "a", "b"), got, want):
+            e = check_bitwise(f"absorbing/{label}/{name}", g, wnt)
+            errs["absorbing_walk"] = max(errs["absorbing_walk"], e)
+
+    def absorbing_case(label, fdr, river, tile, max_steps=20000):
+        rows, cols = fdr.shape
+        h, w = tile
+        ny, nx = -(-rows // h), -(-cols // w)
+        R, C = ny * h, nx * w
+        fdr_p = np.zeros((R, C), np.uint8)
+        fdr_p[:rows, :cols] = fdr
+        riv_p = np.zeros((R, C), np.int8)
+        riv_p[:rows, :cols] = river
+        fdr_p = torch.as_tensor(fdr_p, device=dev)
+        riv_p = torch.as_tensor(riv_p, device=dev)
+        exits = 0
+        for iy in range(ny):
+            for ix in range(nx):
+                sl = np.s_[iy * h : (iy + 1) * h, ix * w : (ix + 1) * w]
+                fdr_eff, code0, role, *_ = boundary.local_walk_operands(
+                    fdr_p[sl], riv_p[sl], iy, ix, h, w, R, C
+                )
+                exits += int((role == boundary.EXIT).sum())
+                absorbing_check(f"{label}/{iy},{ix}", fdr_eff, code0, max_steps)
+        if exits == 0:
+            raise AssertionError(f"absorbing/{label}: no EXIT role fired")
+        print(f"kernel absorbing_walk {label:<34} matches plain bitwise (code, a, b), "
+              f"{ny * nx} tiles, {exits} exit cells")
+
+    absorbing_case("basin, 512x512 tiles", basin["fdr"], basin["river"], (512, 512))
+    absorbing_case(f"lateral channel {ROWS}x{COLS}, 512 tiles", *lateral_channel(ROWS, COLS), (512, 512))
+    fdr_s, riv_s = serpentine()
+    fdr_eff, code0, *_ = boundary.local_walk_operands(
+        torch.as_tensor(fdr_s, device=dev), torch.as_tensor(riv_s, device=dev), 0, 0, 200, 200, 200, 200
+    )
+    absorbing_check("serpentine", fdr_eff, code0, 60000)
+    print(f"kernel absorbing_walk {'serpentine 200x200, one tile':<34} matches plain bitwise (code, a, b)")
+
+    def tracked_case(label, dem, fdr, origin, grid, ed, max_steps, must_fire):
+        d = torch.as_tensor(np.asarray(dem, np.float32), device=dev).contiguous()
+        f = torch.as_tensor(np.asarray(fdr), device=dev).contiguous()
+        tr0 = down.trunc_cells(d, f, *origin, *grid)
+        ops = down.walk_inputs(d, f, 12.5)
+        got = walk.downslope_walk_tracked(*ops, ed, max_steps, tr0)
+        want = down.jacobi_walk(*ops, ed, max_steps, tr0)
+        for name, g, wnt in zip(("pk", "Zt", "trunc"), got, want):
+            check_bitwise(f"tracked/{label}/{name}", g, wnt)
+        e = check_bitwise(
+            f"tracked/{label}/downslope",
+            down.downslope_from_state(ops[1], got[0], got[1], 12.5),
+            down.downslope_from_state(ops[1], want[0], want[1], 12.5),
+        )
+        errs["downslope_walk_tracked"] = max(errs["downslope_walk_tracked"], e)
+        flagged = int(got[2].sum())
+        if must_fire and flagged == 0:
+            raise AssertionError(f"tracked/{label}: no truncation flag fired")
+        print(f"kernel downslope_walk_tracked {label:<30} matches plain bitwise (pk, Zt, trunc, downslope); "
+              f"{flagged} flagged")
+
+    for bump in (None, 40):
+        dem, fdr = flat_east(512, 2048, bump)
+        tracked_case(f"flat east 512x2048 bump={bump}", dem, fdr, (0, 0), (512, 4 * 2048), 5.0, 5000, True)
+    tracked_case("basin window 1024x1024", basin["dem"][300:1324, 200:1224], basin["fdr"][300:1324, 200:1224],
+                 (300, 200), (ROWS, COLS), 5.0, 5000, True)
+    dem, fdr = tall_north(ROWS, COLS, 37)
+    tracked_case("tall north rows 1000-1512", dem[1000:1512], fdr[1000:1512], (1000, 0), (ROWS, COLS),
+                 50.0, 5000, True)
+    torch.cuda.synchronize()
+
+
+def phase_tiled(dev, card, classified_small, hand_small, basin, errs):
+    """The out-of-core path at full size, a forced retry, the streaming
+    calibration; pass times, link bytes, and the tile kernels against their
+    plain versions on one tile's operands, checked and timed."""
+    from descriptools_tpu_torch import pipeline, tiled
+    from descriptools_tpu_torch.ops import downslope as down
+    from descriptools_tpu_torch.ops import flow
+    from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
+    from descriptools_tpu_torch.ops.cuda import stencil as st
+    from descriptools_tpu_torch.ops.cuda import walk
+    from descriptools_tpu_torch.parallel import boundary
+    from descriptools_tpu_torch.utils.synthetic import windowed_basin
+
+    cfg = pipeline.PipelineConfig()
+    loaders = windowed_basin(BIG, BIG, seed=0)
+    stats = {}
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    out = tiled.tiled_suite(loaders, (BIG, BIG), cfg, dev, tile_rows=TILE, tile_cols=TILE, stats=stats)
+    tiled_s = time.perf_counter() - t0
+    launches = launch_counters()
+    tiles = stats["tiles"]
+    if tiles != 4 or launches["absorbing_walk"] != 2 * tiles:
+        raise AssertionError(f"tiled: {tiles} tiles, launches {launches}")
+    if launches["stencil_padded"] < tiles or launches["downslope_walk_tracked"] < tiles:
+        raise AssertionError(f"tiled: a tile kernel launched less than once per tile: {launches}")
+    print(f"tiled {BIG}x{BIG} in {TILE}x{TILE} tiles: launches {launches}; wall {tiled_s:.3f} s "
+          f"(passes {stats['pass_s']}; retries {stats['downslope_retries']})  [{card}]")
+    for p, row in stats["link"].items():
+        rate = lambda b, s: f"{b / 1e9:.3f} GB in {s:.3f} s ({b / s / 1e9 if s else 0.0:.3f} GB/s)"
+        print(f"tiled link pass {p}: h2d {rate(row['h2d_bytes'], row['h2d_s'])}, "
+              f"d2h {rate(row['d2h_bytes'], row['d2h_s'])}  [{card}]")
+    print(f"tiled host waits: prefetch {stats['suite_prefetch_wait_s']:.3f} s, "
+          f"writes {stats['suite_write_wait_s']:.3f} s, device_get {stats['suite_device_get_s']:.3f} s  [{card}]")
+
+    t0 = time.perf_counter()
+    full = {k: loaders[k](0, BIG, 0, BIG) for k in ("dem", "fdr", "fac", "river")}
+    print(f"in-core inputs {BIG}x{BIG} generated on the host in {time.perf_counter() - t0:.3f} s  [{card}]")
+    inputs = pipeline.inputs_to_torch(full["dem"], full["fdr"], full["fac"], full["river"], dev)
+    want = pipeline.descriptor_suite(*inputs, cfg)
+    for name in ("indices", "hand", "downslope", "slope", "fdist"):
+        check_bitwise(f"tiled/{name}", torch.as_tensor(out[name], device=dev), want[name])
+    for name in ("slope_rad", "twi", "mod_twi", "gfi", "ln_hl_h"):
+        check_close(f"tiled/{name}", torch.as_tensor(out[name], device=dev), want[name])
+    print(f"tiled {BIG}x{BIG} matches the in-core suite (indices, hand, downslope, slope, fdist bitwise)")
+    # The in-core reference runs PR 1's kernels: hold it, too, against the
+    # plain engine at this size.
+    plain = pipeline.descriptor_suite(*inputs, pipeline.PipelineConfig(engine="torch"))
+    for name in ("indices", "hand", "downslope", "slope", "fdist"):
+        check_bitwise(f"in-core {BIG}x{BIG}/{name}", want[name], plain[name])
+    for name in ("slope_rad", "twi", "mod_twi", "gfi", "ln_hl_h"):
+        check_close(f"in-core {BIG}x{BIG}/{name}", want[name], plain[name])
+    print(f"in-core suite {BIG}x{BIG} matches the plain engine (indices, hand, downslope, slope, fdist bitwise)")
+    del want, plain
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    incore_ms = median_ms(lambda: pipeline.descriptor_suite(*inputs, cfg))
+    print(f"time in-core suite {BIG}x{BIG}: {incore_ms:.3f} ms "
+          f"({BIG * BIG / incore_ms / 1e3:.3f} M grid-points/s), peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; tiled wall {tiled_s:.3f} s  [{card}]")
+
+    # The tile kernels on the operands the tiled path gives them at 4096x4096
+    # (a 4098x4098 padded block, tile (0,0)'s local walk, a 4224x4224 halo
+    # window): each held against its plain version, then both timed.
+    dem, fdr, fac, river = inputs
+    dem_f = dem.to(torch.float32)
+    lo, hi = TILE // 2, TILE // 2 + TILE
+    padded = dem_f[lo - 1 : hi + 1, lo - 1 : hi + 1].contiguous()
+    fac_t = fac[lo:hi, lo:hi].contiguous()
+    loc = boundary.local_walk_operands(fdr[:TILE, :TILE], river[:TILE, :TILE], 0, 0, TILE, TILE, BIG, BIG)[:2]
+    halo = 64
+    ext = np.s_[lo - halo : hi + halo, lo - halo : hi + halo]
+    d_ext, f_ext = dem_f[ext].contiguous(), fdr[ext].contiguous()
+    tr0 = down.trunc_cells(d_ext, f_ext, lo - halo, lo - halo, BIG, BIG)
+    d_ops = down.walk_inputs(d_ext, f_ext, cfg.px)
+    ed, down_steps, flow_steps = cfg.elevation_difference, cfg.downslope_max_steps, cfg.flow_max_steps
+    pairs = {
+        "stencil_padded": (
+            lambda: st.stencil_padded(padded, fac_t, cfg.px, cfg.n_topo),
+            lambda: st.stencil_padded_plain(padded, fac_t, cfg.px, cfg.n_topo),
+            ("slope", "slope_rad", "twi", "mod_twi"),
+        ),
+        "absorbing_walk": (
+            lambda: walk.absorbing_walk(*loc, flow_steps),
+            lambda: flow.doubling_walk(*loc, flow_steps),
+            ("code", "a", "b"),
+        ),
+        "downslope_walk_tracked": (
+            lambda: walk.downslope_walk_tracked(*d_ops, ed, down_steps, tr0),
+            lambda: down.jacobi_walk(*d_ops, ed, down_steps, tr0),
+            ("pk", "Zt", "trunc"),
+        ),
+    }
+    for kernel, (fn, plain, names) in pairs.items():
+        e = 0.0
+        for name, g, w in zip(names, fn(), plain()):
+            check = check_close if name in ("slope_rad", "twi", "mod_twi") else check_bitwise
+            e = max(e, check(f"tile {TILE}x{TILE}/{kernel}/{name}", g, w))
+        errs[kernel] = max(errs[kernel], e)
+        print(f"kernel {kernel:<22} one {TILE}x{TILE} tile's operands: matches plain "
+              f"({', '.join(names)}; max_abs_err {e:.3g})")
+    times = {kernel: (median_ms(fn), median_ms(plain)) for kernel, (fn, plain, _) in pairs.items()}
+    for name, (ms, plain_ms) in times.items():
+        print(f"time {name:<22} one {TILE}x{TILE} tile: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
+    del pairs, inputs, dem, fdr, fac, river, dem_f, padded, loc, d_ext, f_ext, tr0, d_ops
+    torch.cuda.empty_cache()
+
+    # Streaming calibration at full size (host numpy), alone.
+    t0 = time.perf_counter()
+    th, corr, fit, cmap = tiled.tiled_classify_flood(out["hand"], loaders["flood"], (BIG, BIG),
+                                                     tile_rows=TILE, tile_cols=TILE)
+    big_classify_s = time.perf_counter() - t0
+    if not (np.isfinite(fit) and cmap.shape == (BIG, BIG)):
+        raise AssertionError(f"tiled_classify_flood {BIG}x{BIG}: Fit {fit}, map {cmap.shape}")
+    print(f"tiled_classify_flood {BIG}x{BIG}: threshold {th} Fit {fit!r} Correctness {corr!r}; "
+          f"host time {big_classify_s:.3f} s  [{card}]")
+    del out, full
+
+    # Calibration at the basin's shape, ragged 1024x1024 tiles: identical
+    # to classify_flood.
+    hand_np = hand_small.cpu().numpy()
+    flood = basin["flood"]
+    got = tiled.tiled_classify_flood(hand_np, lambda ys, ye, xs, xe: flood[ys:ye, xs:xe], (ROWS, COLS),
+                                     tile_rows=1024, tile_cols=1024)
+    if got[:3] != classified_small[:3] or not np.array_equal(got[3], classified_small[3]):
+        raise AssertionError(f"tiled_classify_flood: {got[:3]} vs {classified_small[:3]}")
+    print(f"tiled_classify_flood {ROWS}x{COLS} in 1024x1024 tiles: threshold, Fit, Correctness "
+          "and class map identical to classify_flood")
+
+    # Forced retry: 100-step northward walks (ed 50) from a halo of 8.
+    dem_n, fdr_n = tall_north(ROWS, COLS, None)
+    river_n = np.zeros((ROWS, COLS), np.int8)
+    river_n[0] = 1
+    arrays = dict(dem=dem_n.astype(np.int32), fdr=fdr_n, river=river_n, fac=np.ones((ROWS, COLS), np.int32))
+    cfg50 = pipeline.PipelineConfig(elevation_difference=50.0)
+    stats = {}
+    loaders = {k: tiled._array_loader(a) for k, a in arrays.items()}
+    got = tiled.tiled_suite(loaders, (ROWS, COLS), cfg50, dev, tile_rows=512, tile_cols=512,
+                            downslope_halo=8, stats=stats)
+    if stats["downslope_retries"] == 0:
+        raise AssertionError("tiled retry: no truncation retry fired")
+    want = pipeline.descriptor_suite(*pipeline.inputs_to_torch(
+        arrays["dem"], arrays["fdr"], arrays["fac"], arrays["river"], dev), cfg50)
+    for name in ("downslope", "indices", "hand"):
+        check_bitwise(f"tiled retry/{name}", torch.as_tensor(got[name], device=dev), want[name])
+    halos = sorted({r["halo"] for r in stats["downslope_retry_halos"]})
+    print(f"tiled retry tall north {ROWS}x{COLS}, 512 tiles, halo 8: {stats['downslope_retries']} retries "
+          f"(halos {halos}); downslope, indices, hand bitwise the in-core suite")
+    return launches, times
+
+
 def main():
     phase_device()
     dev = torch.device("cuda", 0)
@@ -369,8 +653,13 @@ def main():
     basin = basin_inputs()
     errs = dict.fromkeys(KERNELS, 0.0)
     phase_kernels(dev, basin, errs)
-    inputs, launches = phase_slice(dev, basin)
+    phase_tile_kernels(dev, basin, errs)
+    inputs, launches, hand_small, classified = phase_slice(dev, basin)
     times = phase_timing(dev, inputs, card)
+    del inputs
+    tiled_launches, tiled_times = phase_tiled(dev, card, classified, hand_small, basin, errs)
+    launches.update({k: tiled_launches[k] for k in TILED})
+    times.update(tiled_times)
     kernels = [
         dict(name=name, route="cuda", **meta, launches=launches[name],
              max_abs_err=errs[name], ms=times[name][0], plain_ms=times[name][1])

@@ -1,9 +1,15 @@
-// The two D8 walks of the descriptor suite, one serial walk per thread.
+// The D8 walks of the descriptor suite, one serial walk per thread.
 //
-// downslope_walk_kernel replaces
+// downslope_walk_kernel<false> replaces
 //   descriptools_tpu/ops/pallas/walk_vmem.py::_downslope_kernel
-// flow_walk_kernel replaces
+// downslope_walk_kernel<true> (truncation tracking) replaces
+//   descriptools_tpu/ops/pallas/walk.py::_downslope_kernel and the trunc0
+//   mode of walk_vmem.py::_downslope_kernel
+// absorbing_walk_kernel, launched as the flow walk, replaces
 //   descriptools_tpu/ops/pallas/walk_vmem.py::_walk2_kernel
+// and, launched as the absorbing walk, replaces
+//   descriptools_tpu/ops/pallas/walk_vmem.py::_walk3_kernel and
+//   descriptools_tpu/ops/pallas/walk.py::_walk3_kernel
 //
 // The TPU kernels advance every cell's walk one step per whole-grid sweep
 // (vector selects over VMEM-resident bands), because the TPU has no cheap
@@ -12,7 +18,10 @@
 // the reference toolbox's own design.  The result is the same fixed point:
 // the downslope walk stops at the first cell whose encoded elevation Zt is
 // at or below the start's z - ed (the Jacobi lookahead's first hit, for any
-// fdr, monotone or not); the flow walk stops at the first absorbing cell.
+// fdr, monotone or not); the flow and absorbing walks stop at the first
+// absorbing cell.  One kernel serves every grid size: there is no VMEM
+// tier, so the TPU's VMEM-resident and HBM-blocked kernels of one walk
+// have one counterpart here.
 //
 // Bound: dependent loads.  Each step reads the current cell's direction
 // and its successor's state (8 B, scattered), and the next step waits on
@@ -33,6 +42,8 @@ namespace {
 
 constexpr int kIncDiag = 1 << 16;  // packed count: diagonal steps in bits 16-31
 constexpr int kUnres = INT_MIN;    // flow code of a walk that found no absorber
+// Terminals are encoded as Zt = z - 2^20, so Zt < -2^19 marks a terminal.
+constexpr float kHalf = 524288.0f;
 
 // ESRI D8 code -> (dy, dx, diagonal?); false for 0 / invalid codes.
 __device__ __forceinline__ bool d8_step(int code, int& dy, int& dx, bool& diag) {
@@ -57,19 +68,28 @@ __device__ __forceinline__ bool cell_of_thread(int rows, int cols, int& idx) {
 
 // Downslope: walk until zt0[cur] <= z0 - ed, or max_steps steps.  Writes the
 // stop state (pk = packed cardinal/diagonal counts, Zt = zt0 at the stop).
+// kTrack: also writes trunc = 1 where the walk stopped at a terminal that
+// trunc0 marks (a block edge cut it).  The serial walk knows its stop cell,
+// so the flag is read there directly: exact for fractional elevations too,
+// where the TPU tiers' second Zt offset is exact only for integers.  A
+// start that is itself a terminal stops at once and carries its own flag;
+// a walk cut by the cap is exact and is not flagged.
+template <bool kTrack>
 __global__ void downslope_walk_kernel(const int* __restrict__ fdr_eff,
                                       const float* __restrict__ z,
                                       const float* __restrict__ zt0,
+                                      const unsigned char* __restrict__ trunc0,
                                       int* __restrict__ pk_out,
-                                      float* __restrict__ zt_out, int rows,
-                                      int cols, float ed, int max_steps) {
+                                      float* __restrict__ zt_out,
+                                      unsigned char* __restrict__ trunc_out,
+                                      int rows, int cols, float ed, int max_steps) {
   int idx;
   if (!cell_of_thread(rows, cols, idx)) return;
   const float thresh = z[idx] - ed;
   float zt = zt0[idx];
   int pk = 0;
+  int cur = idx;
   if (!(zt <= thresh)) {  // a terminal start cell stops at once, pk = 0
-    int cur = idx;
     for (int s = 0; s < max_steps; ++s) {
       int dy, dx;
       bool diag;
@@ -84,19 +104,27 @@ __global__ void downslope_walk_kernel(const int* __restrict__ fdr_eff,
   }
   pk_out[idx] = pk;
   zt_out[idx] = zt;
+  if constexpr (kTrack) {
+    trunc_out[idx] = (zt <= thresh && zt < -kHalf && trunc0[cur] != 0) ? 1 : 0;
+  }
 }
 
-// Flow: walk until an absorbing cell (code0 != UNRES), or give up after
-// max_steps steps.  Writes the absorber's code and the cardinal (a) and
-// diagonal (b) step counts, or (UNRES, 0, 0) where no absorber was reached
-// within max_steps (cycles, over-long paths).  a and b are separate 32-bit
-// counts: no path length can overflow them.
-__global__ void flow_walk_kernel(const int* __restrict__ fdr_eff,
-                                 const int* __restrict__ code0,
-                                 int* __restrict__ code_out,
-                                 int* __restrict__ a_out,
-                                 int* __restrict__ b_out, int rows, int cols,
-                                 int max_steps) {
+// Walk from each cell until an absorbing cell (code0 != UNRES), or give up
+// after max_steps steps.  Writes the absorber's code and the cardinal (a)
+// and diagonal (b) step counts, or (UNRES, 0, 0) where no absorber was
+// reached within max_steps (cycles, over-long paths).  a and b are separate
+// 32-bit counts: no path length can overflow them.  The flow walk and the
+// absorbing walk differ only in their code0: the flow walk's is a river
+// cell's flat index, -idx-1 at a NaN absorber; the local phase of a tile or
+// shard (parallel/boundary.py) gives the absorber's local index at every
+// absorbing cell (river, NaN and exit roles alike), the role riding a
+// payload gathered afterwards.
+__global__ void absorbing_walk_kernel(const int* __restrict__ fdr_eff,
+                                      const int* __restrict__ code0,
+                                      int* __restrict__ code_out,
+                                      int* __restrict__ a_out,
+                                      int* __restrict__ b_out, int rows,
+                                      int cols, int max_steps) {
   int idx;
   if (!cell_of_thread(rows, cols, idx)) return;
   int cur = idx;
@@ -122,27 +150,52 @@ unsigned blocks_for(int rows, int cols, int threads) {
   return static_cast<unsigned>((n + threads - 1) / threads);
 }
 
+constexpr int kThreads = 256;
+
 }  // namespace
 
 extern "C" int launch_downslope_walk(const int* fdr_eff, const float* z,
                                      const float* zt0, int* pk, float* zt,
                                      int rows, int cols, float ed, int max_steps,
                                      void* stream) {
-  const int threads = 256;
-  const unsigned blocks = blocks_for(rows, cols, threads);
+  const unsigned blocks = blocks_for(rows, cols, kThreads);
   if (blocks == 0) return 0;
-  downslope_walk_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      fdr_eff, z, zt0, pk, zt, rows, cols, ed, max_steps);
+  downslope_walk_kernel<false><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      fdr_eff, z, zt0, nullptr, pk, zt, nullptr, rows, cols, ed, max_steps);
   return static_cast<int>(cudaGetLastError());
 }
 
+extern "C" int launch_downslope_walk_tracked(const int* fdr_eff, const float* z,
+                                             const float* zt0,
+                                             const unsigned char* trunc0, int* pk,
+                                             float* zt, unsigned char* trunc,
+                                             int rows, int cols, float ed,
+                                             int max_steps, void* stream) {
+  const unsigned blocks = blocks_for(rows, cols, kThreads);
+  if (blocks == 0) return 0;
+  downslope_walk_kernel<true><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      fdr_eff, z, zt0, trunc0, pk, zt, trunc, rows, cols, ed, max_steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Two entry points for one kernel: the in-core flow walk and the local phase
+// of the tiled and sharded paths, each with its own launch counter.
 extern "C" int launch_flow_walk(const int* fdr_eff, const int* code0, int* code,
                                 int* a, int* b, int rows, int cols, int max_steps,
                                 void* stream) {
-  const int threads = 256;
-  const unsigned blocks = blocks_for(rows, cols, threads);
+  const unsigned blocks = blocks_for(rows, cols, kThreads);
   if (blocks == 0) return 0;
-  flow_walk_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  absorbing_walk_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      fdr_eff, code0, code, a, b, rows, cols, max_steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int launch_absorbing_walk(const int* fdr_eff, const int* code0, int* code,
+                                     int* a, int* b, int rows, int cols,
+                                     int max_steps, void* stream) {
+  const unsigned blocks = blocks_for(rows, cols, kThreads);
+  if (blocks == 0) return 0;
+  absorbing_walk_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       fdr_eff, code0, code, a, b, rows, cols, max_steps);
   return static_cast<int>(cudaGetLastError());
 }

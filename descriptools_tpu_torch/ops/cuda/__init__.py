@@ -7,20 +7,25 @@ built or loaded at import: ``build`` compiles ``csrc/*.cu`` at first launch.
 """
 
 
-def launch_counters():
-    """{wrapper name: launches so far} for every kernel wrapper."""
+def _wrappers():
     from descriptools_tpu_torch.ops.cuda import stencil, walk
 
     return {
-        "stencil": stencil.stencil.launches,
-        "downslope_walk": walk.downslope_walk.launches,
-        "flow_walk": walk.flow_walk.launches,
+        "stencil": stencil.stencil,
+        "downslope_walk": walk.downslope_walk,
+        "flow_walk": walk.flow_walk,
+        "stencil_padded": stencil.stencil_padded,
+        "absorbing_walk": walk.absorbing_walk,
+        "downslope_walk_tracked": walk.downslope_walk_tracked,
     }
+
+
+def launch_counters():
+    """{wrapper name: launches so far} for every kernel wrapper."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def reset_launch_counters():
     """Set every wrapper's launch count to 0."""
-    from descriptools_tpu_torch.ops.cuda import stencil, walk
-
-    for fn in (stencil.stencil, walk.downslope_walk, walk.flow_walk):
+    for fn in _wrappers().values():
         fn.launches = 0

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``descriptools_tpu_torch/csrc``).
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, for Hopper (``sm_90a``), at first use, never at import.  The
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into one shared
+library with a plain C interface, at first use, never at import.  The
 library lands in ``build/torch_kernels/`` beside the package, named by a
 hash of the sources and flags, so a changed source rebuilds and an
 unchanged one loads the library already built.  It is loaded with
@@ -27,9 +28,10 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 
 # -fmad=false: no FMA contraction, so float expressions round as written
 # (the slope stencil is held bitwise against PyTorch's).  No fast math.
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 ]
 
 _VP = ctypes.c_void_p
@@ -40,10 +42,16 @@ SIGNATURES = {
     # dem, fac, slope, slope_rad, twi, mod_twi, rows, cols, divisors[8],
     # px*px, n_topo, stream
     "launch_stencil": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _F, _F, _VP],
+    # padded (rows+2 x cols+2), fac, slope, slope_rad, twi, mod_twi, rows,
+    # cols (of the interior), divisors[8], px*px, n_topo, stream
+    "launch_stencil_padded": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _F, _F, _VP],
     # fdr_eff, z, zt0, pk, zt, rows, cols, ed, max_steps, stream
     "launch_downslope_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
+    # fdr_eff, z, zt0, trunc0, pk, zt, trunc, rows, cols, ed, max_steps, stream
+    "launch_downslope_walk_tracked": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
     # fdr_eff, code0, code, a, b, rows, cols, max_steps, stream
     "launch_flow_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    "launch_absorbing_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
 }
 
 
@@ -71,6 +79,24 @@ def source_key():
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; raise on the first that fails.
+    Returns their combined output."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in cmds
+    ]
+    logs, failed = [], None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}"
+    if failed:
+        raise RuntimeError(failed)
+    return "".join(logs)
+
+
 @functools.cache
 def build():
     """Compile (if needed) and return (library path, seconds spent, log)."""
@@ -79,14 +105,21 @@ def build():
     if lib.is_file():
         return lib, 0.0, log_path.read_text() if log_path.is_file() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    tag = f"{source_key()}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        log = _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objs)
+        ])
+        log += _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib)
     return lib, seconds, log

@@ -1,4 +1,4 @@
-"""The downslope and flow walks on the card.
+"""The downslope, flow and absorbing walks on the card.
 
 Wrappers of ``csrc/walk.cu``, one serial walk per CUDA thread:
 
@@ -7,10 +7,18 @@ Wrappers of ``csrc/walk.cu``, one serial walk per CUDA thread:
   ``ops.downslope.jacobi_walk``.  The serial walk is exact for any fdr,
   so the JAX wrapper's monotone-descent probe and its fallback branch have
   no counterpart here.
+- :func:`downslope_walk_tracked` replaces ``descriptools_tpu/ops/pallas/
+  walk.py::_downslope_kernel`` (the blocked tier with truncation flags)
+  and the ``trunc0`` mode of ``walk_vmem.py::_downslope_kernel``; its plain
+  version is ``ops.downslope.jacobi_walk(..., trunc0=)``.
 - :func:`flow_walk` replaces ``walk_vmem.py::_walk2_kernel``; its plain
   version is ``ops.flow.doubling_walk``.  The step counts are two separate
   int32 rasters, so no path can overflow them and the JAX packed-count
   guard with its ``_walk3_kernel`` fallback has no counterpart here.
+- :func:`absorbing_walk` replaces the generic absorbing walks
+  ``walk_vmem.py::_walk3_kernel`` and ``walk.py::_walk3_kernel`` (the
+  local phase of ``parallel.boundary``); its plain version is
+  ``ops.flow.doubling_walk`` on the same operands.
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 the plain version.  There is no other fallback.  The operands are built and
@@ -53,26 +61,71 @@ def downslope_walk(fdr_eff, z, zt0, elevation_difference, max_steps):
 downslope_walk.launches = 0
 
 
-def flow_walk(fdr_eff, code0, max_steps):
-    """(code, a, b) int32: absorber code and cardinal/diagonal step counts."""
-    if not code0.is_cuda:
-        return _flow.doubling_walk(fdr_eff, code0, max_steps)
+def downslope_walk_tracked(fdr_eff, z, zt0, elevation_difference, max_steps, trunc0):
+    """(pk int32, Zt f32, trunc bool) at each cell's downslope stop; trunc
+    marks walks that stopped at a terminal ``trunc0`` (bool) marks."""
+    if not z.is_cuda:
+        return _down.jacobi_walk(fdr_eff, z, zt0, elevation_difference, max_steps, trunc0)
+    _down.check_max_steps(max_steps)
+    shape = tuple(z.shape)
+    build.check_cuda_tensor(fdr_eff, "fdr_eff", torch.int32, shape)
+    build.check_cuda_tensor(z, "z", torch.float32, shape)
+    build.check_cuda_tensor(zt0, "zt0", torch.float32, shape)
+    build.check_cuda_tensor(trunc0, "trunc0", torch.bool, shape)
+    pk = torch.empty(shape, dtype=torch.int32, device=z.device)
+    zt = torch.empty_like(z)
+    trunc = torch.empty_like(trunc0)  # bool: one byte, written 0 or 1
+    with torch.cuda.device(z.device):
+        build.launch(
+            "launch_downslope_walk_tracked",
+            fdr_eff.data_ptr(), z.data_ptr(), zt0.data_ptr(), trunc0.data_ptr(),
+            pk.data_ptr(), zt.data_ptr(), trunc.data_ptr(), shape[0], shape[1],
+            float(np.float32(elevation_difference)), int(max_steps),
+            build.stream_handle(z.device),
+        )
+    downslope_walk_tracked.launches += 1
+    return pk, zt, trunc
+
+
+downslope_walk_tracked.launches = 0
+
+
+def _absorber_walk(entry, counted, fdr_eff, code0, max_steps):
+    """Launch ``entry`` (flow or absorbing walk): (code, a, b) int32."""
     shape = tuple(code0.shape)
     build.check_cuda_tensor(fdr_eff, "fdr_eff", torch.int32, shape)
     build.check_cuda_tensor(code0, "code0", torch.int32, shape)
     code, a, b = (torch.empty_like(code0) for _ in range(3))
     with torch.cuda.device(code0.device):
         build.launch(
-            "launch_flow_walk",
-            fdr_eff.data_ptr(), code0.data_ptr(), code.data_ptr(), a.data_ptr(),
+            entry, fdr_eff.data_ptr(), code0.data_ptr(), code.data_ptr(), a.data_ptr(),
             b.data_ptr(), shape[0], shape[1], int(max_steps),
             build.stream_handle(code0.device),
         )
-    flow_walk.launches += 1
+    counted.launches += 1
     return code, a, b
 
 
+def flow_walk(fdr_eff, code0, max_steps):
+    """(code, a, b) int32: absorber code and cardinal/diagonal step counts."""
+    if not code0.is_cuda:
+        return _flow.doubling_walk(fdr_eff, code0, max_steps)
+    return _absorber_walk("launch_flow_walk", flow_walk, fdr_eff, code0, max_steps)
+
+
 flow_walk.launches = 0
+
+
+def absorbing_walk(fdr_eff, code0, max_steps):
+    """(code, a, b) int32 of a block's local walk: ``code0`` holds the
+    absorber's local index at every absorbing cell, UNRES elsewhere; where
+    no absorber is reached within ``max_steps``, (UNRES, 0, 0)."""
+    if not code0.is_cuda:
+        return _flow.doubling_walk(fdr_eff, code0, max_steps)
+    return _absorber_walk("launch_absorbing_walk", absorbing_walk, fdr_eff, code0, max_steps)
+
+
+absorbing_walk.launches = 0
 
 
 def downslope_cuda(dem, fdr, px, elevation_difference, max_steps):

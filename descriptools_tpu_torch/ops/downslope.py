@@ -17,13 +17,18 @@ outputs are bitwise equal:
   engine (synchronous pull sweeps, as the JAX ``_downslope_jacobi``);
   ``ops.cuda.walk.downslope_walk`` runs one serial walk per CUDA thread;
 - :func:`downslope_from_state` forms the ratio once, post-pass.
+
+On a block cut from a larger grid (a tile or shard with a halo),
+:func:`trunc_cells` marks the terminals that only the block's edge made,
+and the walk engines given ``trunc0`` also return a flag per cell: its walk
+stopped at such a terminal, so its result is not yet exact.
 """
 
 import numpy as np
 import torch
 
 from descriptools_tpu_torch.constants import D8_STEP, DOWNSLOPE_MAX_STEPS, NODATA
-from descriptools_tpu_torch.d8 import pull8, successor
+from descriptools_tpu_torch.d8 import decode, pull8, successor
 
 _INC_DIAG = 1 << 16
 # Terminal offset of the Zt encoding: exact for integer-valued elevations
@@ -54,6 +59,26 @@ def check_max_steps(max_steps):
         raise ValueError(f"max_steps must be in [0, 65536), got {max_steps}")
 
 
+def trunc_cells(dem, fdr, row0, col0, grid_rows, grid_cols, nodata=NODATA):
+    """Cells whose D8 step leaves the local block while staying inside the
+    global grid (bool).  A walk that stops at such a cell was cut by the
+    block's edge, unlike a stop at a genuine terminal (global border exit,
+    NoData target, dead end).  ``row0``/``col0``: global coordinates of the
+    block's origin."""
+    rows, cols = dem.shape
+    z = dem.to(torch.float32)
+    dy, dx, _, valid = decode(fdr)
+    i = torch.arange(rows, dtype=torch.int32, device=dem.device)[:, None]
+    j = torch.arange(cols, dtype=torch.int32, device=dem.device)[None, :]
+    ty = i + dy
+    tx = j + dx
+    gy = ty + int(row0)
+    gx = tx + int(col0)
+    in_local = (ty >= 0) & (ty < rows) & (tx >= 0) & (tx < cols)
+    in_global = (gy >= 0) & (gy < grid_rows) & (gx >= 0) & (gx < grid_cols)
+    return valid & in_global & ~in_local & (z != float(nodata))
+
+
 def _terminal_and_step(dem, fdr, px, nodata=NODATA):
     """Per-cell elevation, terminal flag and step length (2-D)."""
     rows, cols = dem.shape
@@ -73,13 +98,19 @@ def walk_inputs(dem, fdr, px):
     return fdr_eff, z, zt0
 
 
-def jacobi_walk(fdr_eff, z, zt0, elevation_difference, max_steps):
+def jacobi_walk(fdr_eff, z, zt0, elevation_difference, max_steps, trunc0=None):
     """Plain walk engine: the shared t-step lookahead, one pull sweep per
     step, each cell's stop state frozen at its first hit.
 
     Returns (pk int32, Zt f32) at each cell's stop (or at the horizon for
-    cells that reach ``max_steps``)."""
+    cells that reach ``max_steps``).  With ``trunc0`` (bool, see
+    :func:`trunc_cells`) it also pulls that raster along the walk and
+    returns a third, bool raster: the walk stopped at a terminal
+    (``Zt < -2^19``) that ``trunc0`` marks.  A start that is itself such a
+    terminal carries its own flag; a walk that reaches the cap is exact
+    and is not flagged."""
     check_max_steps(max_steps)
+    track = trunc0 is not None
     incs = step_inc_consts()
     inc = torch.zeros(fdr_eff.shape, dtype=torch.int32, device=fdr_eff.device)
     for code, c in zip((1, 2, 4, 8, 16, 32, 64, 128), incs):
@@ -89,20 +120,29 @@ def jacobi_walk(fdr_eff, z, zt0, elevation_difference, max_steps):
     zt = zt0
     stopped = zt0 <= thresh  # stop at k=0 when the start itself is terminal
     res_pk, res_zt = pk, zt0
+    if track:
+        tt = trunc0.to(torch.bool)
+        res_t = tt & (zt0 < -_HALF)
     t = 0
     unroll = 8  # steps between the host-side convergence checks
     while t < max_steps and not bool(stopped.all()):
         for _ in range(min(unroll, max_steps - t)):
-            p_pk, p_zt = pull8(fdr_eff, [pk, zt], [0, 0.0])
+            if track:
+                p_pk, p_zt, tt = pull8(fdr_eff, [pk, zt, tt], [0, 0.0, False])
+            else:
+                p_pk, p_zt = pull8(fdr_eff, [pk, zt], [0, 0.0])
             pk = inc + p_pk
             zt = p_zt
             hit = (~stopped) & (zt <= thresh)
             res_pk = torch.where(hit, pk, res_pk)
             res_zt = torch.where(hit, zt, res_zt)
+            if track:
+                res_t = torch.where(hit, tt & (zt < -_HALF), res_t)
             stopped = stopped | hit
         t += unroll
     # Cap: unstopped cells take the state at the lookahead horizon.
-    return torch.where(stopped, res_pk, pk), torch.where(stopped, res_zt, zt)
+    out = torch.where(stopped, res_pk, pk), torch.where(stopped, res_zt, zt)
+    return (*out, res_t & stopped) if track else out
 
 
 def downslope_from_state(z, pk, zt, px):
@@ -113,11 +153,15 @@ def downslope_from_state(z, pk, zt, px):
     return torch.where(z == NODATA, float(NODATA), out)
 
 
-def _downslope_jacobi(dem, fdr, px, elevation_difference, max_steps):
-    """Downslope through the plain engine (bitwise the JAX jacobi engine)."""
+def _downslope_jacobi(dem, fdr, px, elevation_difference, max_steps, trunc0=None):
+    """Downslope through the plain engine (bitwise the JAX jacobi engine).
+    With ``trunc0``: (downslope, truncation flags), as :func:`jacobi_walk`."""
     fdr_eff, z, zt0 = walk_inputs(dem, fdr, px)
-    pk, zt = jacobi_walk(fdr_eff, z, zt0, elevation_difference, max_steps)
-    return downslope_from_state(z, pk, zt, px)
+    if trunc0 is None:
+        pk, zt = jacobi_walk(fdr_eff, z, zt0, elevation_difference, max_steps)
+        return downslope_from_state(z, pk, zt, px)
+    pk, zt, tr = jacobi_walk(fdr_eff, z, zt0, elevation_difference, max_steps, trunc0)
+    return downslope_from_state(z, pk, zt, px), tr
 
 
 def downslope(dem, fdr, px, elevation_difference,

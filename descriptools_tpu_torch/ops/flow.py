@@ -86,13 +86,18 @@ def doubling_walk(fdr_eff, code0, max_steps):
     return tuple(t.reshape(rows, cols) for t in (code, a, b))
 
 
+def dist_from_counts(a, b, px):
+    """f32 path length of ``a`` cardinal and ``b`` diagonal steps: the one
+    expression every flow engine, in core or tiled, forms fdist with."""
+    c_card = float(np.float32(D8_STEP[0]) * np.float32(px))
+    c_diag = float(np.float32(D8_STEP[1]) * np.float32(px))
+    return a.to(torch.float32) * c_card + b.to(torch.float32) * c_diag
+
+
 def flow_from_state(code, a, b, px, max_steps):
     """(fdist f32, indices int32) from a walk engine's (code, a, b)."""
     landed = (code >= 0) & (a + b <= max_steps)
-    c_card = float(np.float32(D8_STEP[0]) * np.float32(px))
-    c_diag = float(np.float32(D8_STEP[1]) * np.float32(px))
-    dist = a.to(torch.float32) * c_card + b.to(torch.float32) * c_diag
-    fdist = torch.where(landed, dist, float(NODATA))
+    fdist = torch.where(landed, dist_from_counts(a, b, px), float(NODATA))
     indices = torch.where(landed, code, NODATA)
     return fdist, indices
 

@@ -49,14 +49,19 @@ class PipelineConfig:
 
     def resolve_engine(self, device):
         """"cuda" or "torch" for inputs on ``device``."""
-        if self.engine not in ENGINES:
-            raise ValueError(f"engine must be one of {ENGINES}, got {self.engine!r}")
-        is_cuda = torch.device(device).type == "cuda"
-        if self.engine == "auto":
-            return "cuda" if is_cuda else "torch"
-        if self.engine == "cuda" and not is_cuda:
-            raise ValueError(f"engine='cuda' needs CUDA tensors, got device {device}")
-        return self.engine
+        return resolve_engine(self.engine, device)
+
+
+def resolve_engine(engine, device):
+    """"cuda" or "torch": ``engine`` (one of ENGINES) for inputs on ``device``."""
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    is_cuda = torch.device(device).type == "cuda"
+    if engine == "auto":
+        return "cuda" if is_cuda else "torch"
+    if engine == "cuda" and not is_cuda:
+        raise ValueError(f"engine='cuda' needs CUDA tensors, got device {device}")
+    return engine
 
 
 _JAX_ENGINES = {"pallas": "cuda", "xla": "torch", "auto": "auto"}

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from descriptools_tpu_torch import pipeline
+from descriptools_tpu_torch import pipeline, tiled
 from descriptools_tpu_torch.ops import downslope as down
 from descriptools_tpu_torch.ops import flow
 from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
@@ -60,7 +60,10 @@ def test_suite_runs_every_kernel_and_matches_plain(dev, basin):
     inputs = pipeline.inputs_to_torch(basin["dem"], basin["fdr"], basin["fac"], basin["river"], dev)
     reset_launch_counters()
     out = pipeline.descriptor_suite(*inputs)
-    assert all(n == 1 for n in launch_counters().values())
+    assert launch_counters() == dict(
+        stencil=1, downslope_walk=1, flow_walk=1,
+        stencil_padded=0, absorbing_walk=0, downslope_walk_tracked=0,
+    )
     plain = pipeline.descriptor_suite(*inputs, pipeline.PipelineConfig(engine="torch"))
     for k in ("slope", "downslope", "fdist", "indices", "hand"):
         assert torch.equal(out[k], plain[k]), k
@@ -76,3 +79,55 @@ def test_kernel_wrappers_refuse_wrong_dtype(dev):
     z = torch.zeros((4, 5), device=dev)
     with pytest.raises(ValueError, match="int32"):
         walk.downslope_walk(z, z, z, 5.0, 10)
+
+
+def test_stencil_padded_kernel_matches_plain(dev, basin):
+    dem_f = torch.as_tensor(basin["dem"].astype(np.float32), device=dev)
+    fac = torch.as_tensor(basin["fac"], device=dev)
+    padded = dem_f[20:92, 30:201].contiguous()  # real halo on all four sides
+    fac_in = fac[21:91, 31:200]
+    got = st.stencil_padded(padded, fac_in, 12.5, 0.1)
+    want = st.stencil_padded_plain(padded, fac_in, 12.5, 0.1)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=1e-4, equal_nan=True)
+    # NoData ring around the whole grid: bitwise the in-core stencil's slope.
+    whole = torch.full((132, 259), -100.0, device=dev)
+    whole[1:-1, 1:-1] = dem_f
+    assert torch.equal(st.stencil_padded(whole, fac, 12.5, 0.1)[0], st.stencil(dem_f, fac, 12.5, 0.1)[0])
+
+
+def test_tracked_and_absorbing_walk_kernels_match_plain(dev, basin):
+    dem_f = torch.as_tensor(basin["dem"].astype(np.float32), device=dev)[10:90, 20:200].contiguous()
+    fdr = torch.as_tensor(basin["fdr"], device=dev)[10:90, 20:200].contiguous()
+    tr0 = down.trunc_cells(dem_f, fdr, 10, 20, 130, 257)
+    ops = down.walk_inputs(dem_f, fdr, 12.5)
+    got = walk.downslope_walk_tracked(*ops, 5.0, 5000, tr0)
+    want = down.jacobi_walk(*ops, 5.0, 5000, tr0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[2].any())  # some walks of this window are cut
+    river = torch.as_tensor(basin["river"], device=dev)[10:90, 20:200].contiguous()
+    loc_ops = flow.walk_inputs(fdr, river)
+    for g, w in zip(walk.absorbing_walk(*loc_ops, 20000), flow.doubling_walk(*loc_ops, 20000)):
+        assert torch.equal(g, w)
+
+
+def test_tiled_suite_runs_the_tile_kernels_and_matches_incore(dev):
+    rows, cols = 200, 230
+    loaders = windowed_basin(rows, cols, seed=3)
+    reset_launch_counters()
+    stats = {}
+    got = tiled.tiled_suite(loaders, (rows, cols), pipeline.PipelineConfig(), dev,
+                            tile_rows=64, tile_cols=96, stats=stats)
+    n = launch_counters()
+    assert stats["tiles"] == 12 and n["absorbing_walk"] == 2 * 12
+    assert n["stencil_padded"] == 12 and n["downslope_walk_tracked"] >= 12
+    full = {k: f(0, rows, 0, cols) for k, f in loaders.items()}
+    want = pipeline.descriptor_suite(
+        *pipeline.inputs_to_torch(full["dem"], full["fdr"], full["fac"], full["river"], dev)
+    )
+    for k in ("indices", "hand", "downslope", "slope", "fdist"):
+        np.testing.assert_array_equal(got[k], want[k].cpu().numpy(), err_msg=k)
+    for k in ("slope_rad", "twi", "mod_twi", "gfi", "ln_hl_h"):
+        np.testing.assert_allclose(got[k], want[k].cpu().numpy(), rtol=2e-5, atol=1e-4, err_msg=k)

@@ -82,7 +82,7 @@ def _port(fdr, river, max_steps):
 
 
 def serial_walk_state(fdr_eff, code0, max_steps):
-    """numpy form of csrc/walk.cu::flow_walk_kernel: every lane is one start
+    """numpy form of csrc/walk.cu::absorbing_walk_kernel: every lane is one start
     cell walking to its absorber (lanes advance together)."""
     rows, cols = code0.shape
     fe, c0 = fdr_eff.reshape(-1), code0.reshape(-1)

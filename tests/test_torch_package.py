@@ -40,8 +40,9 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'descriptools_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'descriptools_tpu')]\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 12 else 0)\n"
+        "need = {'descriptools_tpu_torch.' + m for m in ('tiled', 'parallel.boundary', 'parallel.classify')}\n"
+        "print(len(mods), bad, need - set(mods))\n"
+        "sys.exit(1 if bad or len(mods) < 16 or need - set(mods) else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
@@ -106,3 +107,42 @@ def test_build_key_follows_the_sources():
     assert names == {"stencil.cu", "walk.cu"}
     assert len(build.source_key()) == 16
     assert str(build.BUILD_DIR.relative_to(ROOT)) == os.path.join("build", "torch_kernels")
+
+
+def test_entry_points_match_the_sources_and_the_counters():
+    """Every ``extern "C"`` launcher in csrc/ is declared for ctypes, and
+    every kernel wrapper has a launch counter."""
+    import re
+
+    from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
+
+    declared = set()
+    for src in build.sources():
+        declared |= set(re.findall(r'extern "C" int (\w+)\(', src.read_text()))
+    assert declared == set(build.SIGNATURES)
+    reset_launch_counters()
+    assert launch_counters() == dict.fromkeys(
+        ("stencil", "downslope_walk", "flow_walk", "stencil_padded", "absorbing_walk",
+         "downslope_walk_tracked"), 0)
+
+
+def test_build_compiles_each_source_and_links_them(monkeypatch, tmp_path):
+    """With a stand-in nvcc (it writes its -o file): one compile per source
+    and one link, the objects removed; a failing compile raises."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        'while [ "$#" -gt 0 ]; do if [ "$1" = -o ]; then out=$2; fi; '
+        'case "$1" in *walk.cu) [ -n "$FAIL_WALK" ] && { echo broken; exit 2; };; esac; shift; done\n'
+        'echo "compiled $out"; : > "$out"\n'
+    )
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    lib, _, log = build.build.__wrapped__()
+    assert lib.is_file() and log.count("compiled") == len(build.sources()) + 1
+    assert [p.name for p in (tmp_path / "out").iterdir() if p.suffix == ".o"] == []
+    lib.unlink()
+    monkeypatch.setenv("FAIL_WALK", "1")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        build.build.__wrapped__()
