@@ -10,9 +10,10 @@ Phases, each printing its own lines:
 1. every CUDA kernel against its plain PyTorch version on the card, at the
    basin's shape (2178x1534, synthetic) and on adversarial fixtures
    (long northward walks, with and without ascending bumps; a lateral
-   channel; a 40000-step serpentine); the tiled path's kernels on tile
-   operands (basin windows and tiles, a lateral channel cut into tiles, a
-   flat eastward walk and a ramp cut by a window edge);
+   channel; a 40000-step serpentine, under and over the cap; 2-cell
+   cycles; NaN absorbers); the tiled path's kernels on tile operands
+   (basin windows and tiles, a lateral channel cut into tiles, a flat
+   eastward walk and a ramp cut by a window edge);
 2. the in-core path: ``descriptor_suite`` on CUDA tensors (the kernels
    run), then ``classify_flood``, held against the ``engine="torch"`` run
    on the same card, with every kernel's launch count checked;
@@ -23,7 +24,14 @@ Phases, each printing its own lines:
    grid; a forced truncation retry; ``tiled_classify_flood`` against
    ``classify_flood``; pass times, host<->device bytes and the tile
    kernels against their plain versions on one 4096x4096 tile's operands,
-   checked and timed.
+   checked and timed;
+5. the large-grid entry point: ``descriptor_suite(engine="cuda_blocked")``
+   at the basin's shape against ``engine="torch_blocked"``; then
+   ``run_suite_checkpointed(engine="cuda_blocked")`` at 8192x8192 (phase
+   4's in-core inputs), killed inside its flow stage and resumed, held
+   bitwise against an uninterrupted ``descriptor_suite`` of the same grid,
+   with stage seconds, checkpoint bytes and peak device memory; the fold
+   kernel against its plain version there, checked and timed.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises, so
@@ -73,9 +81,16 @@ KERNELS = {
         source="descriptools_tpu_torch/csrc/walk.cu",
         replaces="descriptools_tpu/ops/pallas/walk.py:120, descriptools_tpu/ops/pallas/walk_vmem.py:506 (trunc0 mode)",
     ),
+    "flow_walk_blocked": dict(
+        source="descriptools_tpu_torch/csrc/flow_fold.cu",
+        replaces="descriptools_tpu/ops/pallas/walk.py:375",
+    ),
 }
 IN_CORE = ("stencil", "downslope_walk", "flow_walk")
 TILED = ("stencil_padded", "absorbing_walk", "downslope_walk_tracked")
+BLOCKED = ("stencil", "downslope_walk", "flow_walk_blocked")  # engine="cuda_blocked"
+BITWISE = ("indices", "hand", "downslope", "slope", "fdist")
+CLOSE = ("slope_rad", "twi", "mod_twi", "gfi", "ln_hl_h")
 BIG = 8192  # the tiled phase's grid side: 67,108,864 cells
 TILE = 4096  # the JAX package's default tile side
 
@@ -188,6 +203,30 @@ def serpentine(rows=200, cols=200):
     return fdr, river
 
 
+def two_cell_cycles(rows=512, cols=640):
+    """Eastward rows into a river column, cut by E<->W and S<->N pairs: the
+    cells upstream of a pair never land."""
+    fdr = np.full((rows, cols), 1, np.uint8)
+    river = np.zeros((rows, cols), np.int8)
+    river[:, -1] = 1
+    fdr[10::37, 200], fdr[10::37, 201] = 1, 16
+    fdr[30, 450], fdr[31, 450] = 4, 64
+    return fdr, river
+
+
+def nan_absorbers(rows=1000, cols=1200, seed=5):
+    """Random D8 field: fdr-0 cells, border exits, river cells with fdr 0
+    (NaN absorbers, not rivers) and a few river cells."""
+    rng = np.random.default_rng(seed)
+    codes = np.array([1, 2, 4, 8, 16, 32, 64, 128], np.uint8)
+    fdr = codes[rng.integers(0, 8, size=(rows, cols))]
+    fdr[rng.random((rows, cols)) < 0.04] = 0
+    river = (rng.random((rows, cols)) < 0.04).astype(np.int8)
+    fdr[7::50, 7] = 0
+    river[7::50, 7] = 1
+    return fdr, river
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -264,6 +303,26 @@ def phase_kernels(dev, basin, errs):
         errs["flow_walk"] = max(errs["flow_walk"], e)
         print(f"kernel flow_walk      {label:<26} matches plain bitwise (code, a, b, fdist, indices)")
 
+    def fold_case(label, fdr, river, max_steps):
+        fdr_eff, code0 = flow.walk_inputs(torch.as_tensor(fdr, device=dev), torch.as_tensor(river, device=dev))
+        consts = flow.step_consts(12.5)
+        got = walk.flow_walk_blocked(fdr_eff, code0, *consts, max_steps)
+        rounds = walk.flow_walk_blocked.rounds
+        want = flow.fold_walk(fdr_eff, code0, *consts, max_steps)
+        e = 0.0
+        for name, g, w in zip(("code", "dist"), got, want):
+            e = max(e, check_bitwise(f"fold/{label}/{name}", g, w))
+        fd, idx = flow.flow_from_fold(*got)
+        for name, g, w in zip(("fdist", "indices"), (fd, idx), flow.flow_from_fold(*want)):
+            e = max(e, check_bitwise(f"fold/{label}/{name}", g, w))
+        counts = flow.flow_from_state(*walk.flow_walk(fdr_eff, code0, max_steps), 12.5, max_steps)
+        check_bitwise(f"fold/{label}/indices vs flow_walk", idx, counts[1])
+        errs["flow_walk_blocked"] = max(errs["flow_walk_blocked"], e)
+        landed = int((idx != -100).sum())
+        print(f"kernel flow_walk_blocked {label:<30} matches plain bitwise (code, dist, fdist, indices; "
+              f"indices = flow_walk's); {rounds} launches, {landed} of {idx.numel()} landed, "
+              f"fdist differs from counts on {int((fd != counts[0]).sum())} cells")
+
     stencil_case(f"basin {ROWS}x{COLS}", basin["dem"], basin["fac"])
     downslope_case(f"basin {ROWS}x{COLS}", basin["dem"], basin["fdr"], 5.0, 5000)
     flow_case(f"basin {ROWS}x{COLS}", basin["fdr"], basin["river"], 20000)
@@ -275,6 +334,12 @@ def phase_kernels(dev, basin, errs):
     flow_case("lateral channel", *lateral_channel(), 1000)
     flow_case(f"lateral channel {ROWS}x{COLS}", *lateral_channel(ROWS, COLS), 20000)
     flow_case("serpentine 200x200", *serpentine(), 60000)
+    fold_case(f"basin {ROWS}x{COLS}", basin["fdr"], basin["river"], 20000)
+    fold_case(f"lateral channel {ROWS}x{COLS}", *lateral_channel(ROWS, COLS), 20000)
+    fold_case("serpentine 200x200, cap 60000", *serpentine(), 60000)
+    fold_case("serpentine 200x200, cap 20000", *serpentine(), 20000)
+    fold_case("2-cell cycles 512x640", *two_cell_cycles(), 20000)
+    fold_case("NaN absorbers 1000x1200", *nan_absorbers(), 20000)
     torch.cuda.synchronize()
 
 
@@ -380,6 +445,15 @@ def phase_timing(dev, inputs, card):
             median_ms(lambda: flow.doubling_walk(*fl, 20000)),
         ),
     }
+    consts = flow.step_consts(12.5)
+    fold = {
+        "flow_walk_blocked, basin": f_ops,
+        f"flow_walk_blocked, lateral channel (walks of up to {ROWS + COLS - 2} steps)": fl,
+    }
+    for name, ops in fold.items():
+        ms = median_ms(lambda: walk.flow_walk_blocked(*ops, *consts, 20000))
+        long_walks[f"{name} ({walk.flow_walk_blocked.rounds} launches)"] = (
+            ms, median_ms(lambda: flow.fold_walk(*ops, *consts, 20000)))
     for name, (ms, plain_ms) in long_walks.items():
         print(f"time {name} {ROWS}x{COLS}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
     suite_ms = median_ms(lambda: pipeline.descriptor_suite(*inputs, pipeline.PipelineConfig()))
@@ -611,7 +685,7 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs):
         raise AssertionError(f"tiled_classify_flood {BIG}x{BIG}: Fit {fit}, map {cmap.shape}")
     print(f"tiled_classify_flood {BIG}x{BIG}: threshold {th} Fit {fit!r} Correctness {corr!r}; "
           f"host time {big_classify_s:.3f} s  [{card}]")
-    del out, full
+    del out
 
     # Calibration at the basin's shape, ragged 1024x1024 tiles: identical
     # to classify_flood.
@@ -643,7 +717,118 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs):
     halos = sorted({r["halo"] for r in stats["downslope_retry_halos"]})
     print(f"tiled retry tall north {ROWS}x{COLS}, 512 tiles, halo 8: {stats['downslope_retries']} retries "
           f"(halos {halos}); downslope, indices, hand bitwise the in-core suite")
-    return launches, times
+    return launches, times, full
+
+
+def phase_checkpointed(dev, card, basin, full, errs):
+    """The large-grid entry point: the blocked engine at the basin's shape
+    against its plain version, then the checkpointed suite at 8192x8192,
+    killed inside its flow stage and resumed, against the uninterrupted
+    suite; the fold kernel against its plain version at that size."""
+    import tempfile
+
+    from descriptools_tpu_torch import pipeline
+    from descriptools_tpu_torch.ops import flow
+    from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
+    from descriptools_tpu_torch.ops.cuda import walk
+
+    blocked = pipeline.PipelineConfig(engine="cuda_blocked")
+    small = pipeline.inputs_to_torch(basin["dem"], basin["fdr"], basin["fac"], basin["river"], dev)
+    reset_launch_counters()
+    out = pipeline.descriptor_suite(*small, blocked)
+    torch.cuda.synchronize()
+    launches = launch_counters()
+    if any(launches[k] == 0 for k in BLOCKED) or launches["flow_walk"]:
+        raise AssertionError(f"cuda_blocked suite: launches {launches}")
+    plain = pipeline.descriptor_suite(*small, pipeline.PipelineConfig(engine="torch_blocked"))
+    for name in BITWISE:
+        check_bitwise(f"blocked suite/{name}", out[name], plain[name])
+    for name in CLOSE:
+        check_close(f"blocked suite/{name}", out[name], plain[name])
+    counts = pipeline.descriptor_suite(*small, pipeline.PipelineConfig(engine="cuda"))
+    check_bitwise("blocked suite/indices vs cuda", out["indices"], counts["indices"])
+    print(f"cuda_blocked suite {ROWS}x{COLS}: launches {launches}; matches torch_blocked (integers, slope, "
+          f"downslope, fdist bitwise); fdist differs from engine='cuda' on "
+          f"{int((out['fdist'] != counts['fdist']).sum())} cells")
+    del small, out, plain, counts
+
+    inputs = pipeline.inputs_to_torch(full["dem"], full["fdr"], full["fac"], full["river"], dev)
+    real_flow, real_stencil, real_down = (
+        pipeline._engine_flow, pipeline._engine_stencil, pipeline._engine_downslope)
+
+    def dying_flow(*a, **k):
+        raise RuntimeError("simulated preemption")
+
+    def poisoned(*a, **k):
+        raise AssertionError("the resume recomputed a completed stage")
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        ckdir = os.path.join(tmp, "ck")
+        first, resumed = {}, {}
+        reset_launch_counters()
+        try:
+            pipeline._engine_flow = dying_flow
+            try:
+                pipeline.run_suite_checkpointed(*inputs, blocked, ckdir, stats=first)
+                raise AssertionError("the patched flow stage did not die")
+            except RuntimeError as err:
+                if "simulated preemption" not in str(err):
+                    raise
+            pipeline._engine_flow = real_flow
+            pipeline._engine_stencil = pipeline._engine_downslope = poisoned
+            before = launch_counters()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            state = pipeline.run_suite_checkpointed(*inputs, blocked, ckdir, stats=resumed)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev)
+        finally:
+            pipeline._engine_flow, pipeline._engine_stencil, pipeline._engine_downslope = (
+                real_flow, real_stencil, real_down)
+        launches = launch_counters()
+        if any(launches[k] == 0 for k in BLOCKED) or launches["flow_walk"]:
+            raise AssertionError(f"checkpointed {BIG}x{BIG}: launches {launches}")
+        if launches["stencil"] != before["stencil"] or launches["downslope_walk"] != before["downslope_walk"]:
+            raise AssertionError(f"the resume relaunched a completed stage's kernel: {before} -> {launches}")
+        if [resumed[s]["resumed"] for s in ("stencil", "walks", "flow", "pointwise")] != [True, True, False, False]:
+            raise AssertionError(f"resume stages: {resumed}")
+        on_disk = sum(os.path.getsize(os.path.join(ckdir, f)) for f in os.listdir(ckdir))
+    for name, row in [*((f"killed run {k}", v) for k, v in first.items()),
+                      *((f"resume {k}", v) for k, v in resumed.items())]:
+        print(f"checkpointed {BIG}x{BIG} {name}: {row['seconds']:.3f} s, saved {row['saved_bytes'] / 1e9:.3f} GB, "
+              f"loaded {row['loaded_bytes'] / 1e9:.3f} GB{' (resumed)' if row['resumed'] else ''}  [{card}]")
+    print(f"checkpointed {BIG}x{BIG}: launches {launches}; resume {resume_s:.3f} s, peak device memory "
+          f"{peak / 2**30:.3f} GiB; {on_disk / 1e9:.3f} GB on disk  [{card}]")
+
+    want = pipeline.descriptor_suite(*inputs, blocked)
+    for name, t in want.items():
+        check_bitwise(f"checkpointed {BIG}x{BIG}/{name}", state[name], t)
+    hand, fac = state["hand"], inputs[2]
+    valid = inputs[0] != -100
+    if not bool(torch.isfinite(state["fdist"][valid]).all()) or not bool(((hand == -100) | (hand >= 0)).all()):
+        raise AssertionError(f"checkpointed {BIG}x{BIG}: non-finite fdist or negative HAND")
+    print(f"checkpointed {BIG}x{BIG} killed in the flow stage and resumed: every raster bitwise the "
+          f"uninterrupted cuda_blocked suite; the resume loaded stencil and walks")
+    del state, want, hand, fac, valid
+
+    # The fold kernel against its plain version on this grid's operands.
+    ops = flow.walk_inputs(inputs[1], inputs[3])
+    consts = flow.step_consts(12.5)
+    e = 0.0
+    for name, g, w in zip(("code", "dist"), walk.flow_walk_blocked(*ops, *consts, 20000),
+                          flow.fold_walk(*ops, *consts, 20000)):
+        e = max(e, check_bitwise(f"fold {BIG}x{BIG}/{name}", g, w))
+    errs["flow_walk_blocked"] = max(errs["flow_walk_blocked"], e)
+    ms = median_ms(lambda: walk.flow_walk_blocked(*ops, *consts, 20000))
+    rounds = walk.flow_walk_blocked.rounds
+    plain_ms = median_ms(lambda: flow.fold_walk(*ops, *consts, 20000))
+    print(f"time flow_walk_blocked {BIG}x{BIG} ({rounds} launches): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+          f"matches plain bitwise (code, dist)  [{card}]")
+    del ops, inputs
+    torch.cuda.empty_cache()
+    return launches, {"flow_walk_blocked": (ms, plain_ms)}
 
 
 def main():
@@ -657,9 +842,12 @@ def main():
     inputs, launches, hand_small, classified = phase_slice(dev, basin)
     times = phase_timing(dev, inputs, card)
     del inputs
-    tiled_launches, tiled_times = phase_tiled(dev, card, classified, hand_small, basin, errs)
+    tiled_launches, tiled_times, full = phase_tiled(dev, card, classified, hand_small, basin, errs)
     launches.update({k: tiled_launches[k] for k in TILED})
     times.update(tiled_times)
+    blocked_launches, blocked_times = phase_checkpointed(dev, card, basin, full, errs)
+    launches["flow_walk_blocked"] = blocked_launches["flow_walk_blocked"]
+    times.update(blocked_times)
     kernels = [
         dict(name=name, route="cuda", **meta, launches=launches[name],
              max_abs_err=errs[name], ms=times[name][0], plain_ms=times[name][1])

@@ -36,29 +36,13 @@
 
 #include <cuda_runtime.h>
 
-#include <climits>
+#include "d8.cuh"
 
 namespace {
 
 constexpr int kIncDiag = 1 << 16;  // packed count: diagonal steps in bits 16-31
-constexpr int kUnres = INT_MIN;    // flow code of a walk that found no absorber
 // Terminals are encoded as Zt = z - 2^20, so Zt < -2^19 marks a terminal.
 constexpr float kHalf = 524288.0f;
-
-// ESRI D8 code -> (dy, dx, diagonal?); false for 0 / invalid codes.
-__device__ __forceinline__ bool d8_step(int code, int& dy, int& dx, bool& diag) {
-  switch (code) {
-    case 1: dy = 0; dx = 1; diag = false; return true;     // E
-    case 2: dy = 1; dx = 1; diag = true; return true;      // SE
-    case 4: dy = 1; dx = 0; diag = false; return true;     // S
-    case 8: dy = 1; dx = -1; diag = true; return true;     // SW
-    case 16: dy = 0; dx = -1; diag = false; return true;   // W
-    case 32: dy = -1; dx = -1; diag = true; return true;   // NW
-    case 64: dy = -1; dx = 0; diag = false; return true;   // N
-    case 128: dy = -1; dx = 1; diag = true; return true;   // NE
-    default: return false;
-  }
-}
 
 __device__ __forceinline__ bool cell_of_thread(int rows, int cols, int& idx) {
   const long long cell = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;

@@ -17,6 +17,7 @@ def _wrappers():
         "stencil_padded": stencil.stencil_padded,
         "absorbing_walk": walk.absorbing_walk,
         "downslope_walk_tracked": walk.downslope_walk_tracked,
+        "flow_walk_blocked": walk.flow_walk_blocked,
     }
 
 

@@ -52,6 +52,11 @@ SIGNATURES = {
     # fdr_eff, code0, code, a, b, rows, cols, max_steps, stream
     "launch_flow_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "launch_absorbing_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    # fdr_eff, code0, code, dist, code_b, dist_b, flags, n_flags, rows, cols,
+    # c_card, c_diag, max_steps, launches (int*, host), stream
+    "launch_flow_walk_blocked": [
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _I, ctypes.POINTER(_I), _VP,
+    ],
 }
 
 
@@ -72,8 +77,9 @@ def sources():
 
 
 def source_key():
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

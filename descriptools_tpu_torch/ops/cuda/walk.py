@@ -19,6 +19,10 @@ Wrappers of ``csrc/walk.cu``, one serial walk per CUDA thread:
   ``walk_vmem.py::_walk3_kernel`` and ``walk.py::_walk3_kernel`` (the
   local phase of ``parallel.boundary``); its plain version is
   ``ops.flow.doubling_walk`` on the same operands.
+- :func:`flow_walk_blocked` (``csrc/flow_fold.cu``) replaces
+  ``walk.py::_flow_kernel``, the JAX blocked flow tier; its plain version
+  is ``ops.flow.fold_walk``.  It forms fdist as the right fold of the step
+  lengths, as that tier does, where :func:`flow_walk` gives counts.
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 the plain version.  There is no other fallback.  The operands are built and
@@ -26,6 +30,8 @@ the results finished in torch ops shared with the plain engines
 (``walk_inputs`` before, ``*_from_state`` after), so every engine's output
 is bitwise the same function of the walk state.
 """
+
+import ctypes
 
 import numpy as np
 import torch
@@ -140,3 +146,49 @@ def flow_cuda(fdr, river, px, max_steps):
     fdr_eff, code0 = _flow.walk_inputs(fdr, river)
     code, a, b = flow_walk(fdr_eff, code0, max_steps)
     return _flow.flow_from_state(code, a, b, px, max_steps)
+
+
+FOLD_TILE = 64  # interior side of a flow_fold.cu block (kTile)
+
+
+def flow_walk_blocked(fdr_eff, code0, c_card, c_diag, max_steps):
+    """(code int32, dist f32) of the fold walk: the absorber's code and the
+    right fold of the step lengths ``c_card`` / ``c_diag`` along the path;
+    (UNRES, 0) where no absorber is reached within ``max_steps``.
+
+    The kernel is launched once per 16 sweeps until a launch resolves
+    nothing; ``flow_walk_blocked.rounds`` holds the number of launches of
+    the last call."""
+    if not code0.is_cuda:
+        return _flow.fold_walk(fdr_eff, code0, c_card, c_diag, max_steps)
+    shape = tuple(code0.shape)
+    build.check_cuda_tensor(fdr_eff, "fdr_eff", torch.int32, shape)
+    build.check_cuda_tensor(code0, "code0", torch.int32, shape)
+    code, code_b = torch.empty_like(code0), torch.empty_like(code0)
+    dist = torch.empty(shape, dtype=torch.float32, device=code0.device)
+    dist_b = torch.empty_like(dist)
+    blocks = -(-shape[0] // FOLD_TILE) * -(-shape[1] // FOLD_TILE)
+    flags = torch.empty(2 * blocks + 1, dtype=torch.int32, device=code0.device)
+    rounds = ctypes.c_int(0)
+    with torch.cuda.device(code0.device):
+        build.launch(
+            "launch_flow_walk_blocked",
+            fdr_eff.data_ptr(), code0.data_ptr(), code.data_ptr(), dist.data_ptr(),
+            code_b.data_ptr(), dist_b.data_ptr(), flags.data_ptr(), flags.numel(),
+            shape[0], shape[1], float(np.float32(c_card)), float(np.float32(c_diag)),
+            int(max_steps), ctypes.byref(rounds), build.stream_handle(code0.device),
+        )
+    flow_walk_blocked.launches += 1
+    flow_walk_blocked.rounds = rounds.value
+    return code, dist
+
+
+flow_walk_blocked.launches = 0
+flow_walk_blocked.rounds = 0
+
+
+def flow_blocked_cuda(fdr, river, px, max_steps):
+    """(fdist, indices) through :func:`flow_walk_blocked`."""
+    fdr_eff, code0 = _flow.walk_inputs(fdr, river)
+    code, dist = flow_walk_blocked(fdr_eff, code0, *_flow.step_consts(px), max_steps)
+    return _flow.flow_from_fold(code, dist)

@@ -15,13 +15,23 @@ answer) or a NaN absorber (dead end, border exit, fdr 0), within
   runs one serial walk per CUDA thread;
 - :func:`flow_from_state` forms fdist and indices post-pass, from the
   integer counts, as ``walk_vmem.flow_pallas_vmem`` does.
+
+The fold engines (``engine="torch_blocked"`` / ``"cuda_blocked"``) are the
+counterpart of the JAX blocked tier ``walk.py::flow_pallas``: frontier
+sweeps in which a cell takes its successor's code and distance when the
+successor resolves, so fdist is the right fold ``stepd[c0] + (stepd[c1] +
+(... + 0))`` of the f32 step lengths along the path, not a product of
+counts.  The two orders differ in the last ulps on long paths.
+:func:`fold_walk` is the plain engine; ``ops.cuda.walk.flow_walk_blocked``
+runs the same sweeps in shared-memory tiles; :func:`flow_from_fold`
+finishes either.
 """
 
 import numpy as np
 import torch
 
 from descriptools_tpu_torch.constants import D8_STEP, FLOW_MAX_STEPS, NODATA
-from descriptools_tpu_torch.d8 import successor
+from descriptools_tpu_torch.d8 import pull8, successor
 
 UNRES = -(1 << 31)  # unresolved-walk code (INT32_MIN)
 _I32_IDX_LIMIT = 1 << 31
@@ -86,11 +96,17 @@ def doubling_walk(fdr_eff, code0, max_steps):
     return tuple(t.reshape(rows, cols) for t in (code, a, b))
 
 
+def step_consts(px):
+    """(cardinal, diagonal) step length in metres, f32(step) * f32(px), as
+    Python floats that are exact f32 values."""
+    return (float(np.float32(D8_STEP[0]) * np.float32(px)),
+            float(np.float32(D8_STEP[1]) * np.float32(px)))
+
+
 def dist_from_counts(a, b, px):
     """f32 path length of ``a`` cardinal and ``b`` diagonal steps: the one
-    expression every flow engine, in core or tiled, forms fdist with."""
-    c_card = float(np.float32(D8_STEP[0]) * np.float32(px))
-    c_diag = float(np.float32(D8_STEP[1]) * np.float32(px))
+    expression every count engine, in core or tiled, forms fdist with."""
+    c_card, c_diag = step_consts(px)
     return a.to(torch.float32) * c_card + b.to(torch.float32) * c_diag
 
 
@@ -102,18 +118,59 @@ def flow_from_state(code, a, b, px, max_steps):
     return fdist, indices
 
 
+def fold_walk(fdr_eff, code0, c_card, c_diag, max_steps):
+    """Plain fold engine: (code int32, dist f32) after frontier sweeps.
+
+    Sweep ``s`` (from 0, gated by ``s < max_steps``) resolves every UNRES
+    cell whose successor is resolved: it takes the successor's code and
+    ``stepd + dist[succ]``, ``stepd`` being ``c_card`` or ``c_diag`` by step
+    kind (0 at absorbers, which never resolve anew).  A cell at depth ``d`` resolves at sweep ``d - 1``; the walk stops
+    after a sweep that resolves nothing, or after ``max_steps`` sweeps.
+    Cells that never resolve keep (UNRES, 0)."""
+    diag = (fdr_eff == 2) | (fdr_eff == 8) | (fdr_eff == 32) | (fdr_eff == 128)
+    stepd = torch.where(diag, c_diag, c_card).to(torch.float32)
+    stepd = torch.where(fdr_eff == 0, 0.0, stepd)
+    code = code0.clone()
+    dist = torch.zeros(code0.shape, dtype=torch.float32, device=code0.device)
+    for _ in range(max_steps):
+        p_code, p_dist = pull8(fdr_eff, [code, dist], [-1, 0.0])
+        hit = (code == UNRES) & (p_code != UNRES)
+        if not bool(hit.any()):
+            break
+        dist = torch.where(hit, stepd + p_dist, dist)
+        code = torch.where(hit, p_code, code)
+    return code, dist
+
+
+def flow_from_fold(code, dist):
+    """(fdist f32, indices int32) from a fold engine's (code, dist)."""
+    landed = code >= 0
+    fdist = torch.where(landed, dist, float(NODATA))
+    indices = torch.where(landed, code, NODATA)
+    return fdist, indices
+
+
 def flow_distance_index(fdr, river, px, max_steps=FLOW_MAX_STEPS, engine="torch"):
     """Flow distance + river-cell flat index for a whole grid.
 
     Returns (fdist float32, indices int32).  ``engine="torch"`` runs the
-    plain engine on any device; ``"cuda"`` the serial-walk kernel
-    (``ops.cuda.walk.flow_cuda``).
+    plain count engine on any device, ``"cuda"`` the serial-walk kernel
+    (``ops.cuda.walk.flow_cuda``); ``"torch_blocked"`` the plain fold
+    engine, ``"cuda_blocked"`` the fold kernel
+    (``ops.cuda.walk.flow_blocked_cuda``).  Indices are the same for all
+    four; fdist of the fold engines is bitwise the JAX blocked tier's.
     """
     if engine == "cuda":
         from descriptools_tpu_torch.ops.cuda.walk import flow_cuda
 
         return flow_cuda(fdr, river, px, max_steps)
+    if engine == "cuda_blocked":
+        from descriptools_tpu_torch.ops.cuda.walk import flow_blocked_cuda
+
+        return flow_blocked_cuda(fdr, river, px, max_steps)
     fdr_eff, code0 = walk_inputs(fdr, river)
+    if engine == "torch_blocked":
+        return flow_from_fold(*fold_walk(fdr_eff, code0, *step_consts(px), max_steps))
     code, a, b = doubling_walk(fdr_eff, code0, max_steps)
     return flow_from_state(code, a, b, px, max_steps)
 

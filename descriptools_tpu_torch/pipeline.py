@@ -12,10 +12,16 @@ dependency order, then calibration of a flood map on HAND.
 ``PipelineConfig.engine`` picks the walk and stencil engines: ``"cuda"``
 runs the hand-written kernels (CUDA tensors only), ``"torch"`` their plain
 torch versions on any device, ``"auto"`` = cuda iff the inputs are on a
-CUDA device.
+CUDA device.  ``"cuda_blocked"`` and ``"torch_blocked"`` run the same
+stencil and downslope, and the flow through the fold engines
+(``ops.flow.fold_walk``), whose fdist is bitwise the JAX package's blocked
+tier (``walk.py::flow_pallas``, which it runs above its VMEM budget); the
+count engines give fdist in another summation order.
 """
 
 import dataclasses
+import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,7 +35,8 @@ from descriptools_tpu_torch.ops.flow import flow_distance_index, hand_and_river_
 from descriptools_tpu_torch.ops.gfi import gfi as _gfi
 from descriptools_tpu_torch.ops.gfi import ln_hl_h
 
-ENGINES = ("auto", "cuda", "torch")
+ENGINES = ("auto", "cuda", "torch", "cuda_blocked", "torch_blocked")
+_ON_CUDA = ("cuda", "cuda_blocked")
 
 
 @dataclass(frozen=True)
@@ -53,14 +60,15 @@ class PipelineConfig:
 
 
 def resolve_engine(engine, device):
-    """"cuda" or "torch": ``engine`` (one of ENGINES) for inputs on ``device``."""
+    """``engine`` (one of ENGINES) for inputs on ``device``, "auto" resolved
+    to "cuda" or "torch"."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
     is_cuda = torch.device(device).type == "cuda"
     if engine == "auto":
         return "cuda" if is_cuda else "torch"
-    if engine == "cuda" and not is_cuda:
-        raise ValueError(f"engine='cuda' needs CUDA tensors, got device {device}")
+    if engine in _ON_CUDA and not is_cuda:
+        raise ValueError(f"engine={engine!r} needs CUDA tensors, got device {device}")
     return engine
 
 
@@ -87,6 +95,28 @@ def inputs_to_torch(dem, fdr, fac, river, device):
     )
 
 
+def _engine_stencil(dem_f, fac, cfg, engine):
+    """(slope, slope_rad, twi, mod_twi) through the engine's stencil."""
+    run_stencil = stencil if engine in _ON_CUDA else stencil_plain
+    return run_stencil(dem_f, fac, cfg.px, cfg.n_topo)
+
+
+def _engine_downslope(dem_f, fdr, cfg, engine):
+    """Downslope through the engine's walk.  The blocked engines use the
+    serial walk or the Jacobi engine, both bitwise the JAX blocked
+    downslope tier (``walk.py::downslope_pallas``)."""
+    return downslope(
+        dem_f, fdr, cfg.px, cfg.elevation_difference,
+        max_steps=cfg.downslope_max_steps,
+        engine="cuda" if engine in _ON_CUDA else "torch",
+    )
+
+
+def _engine_flow(fdr, river, cfg, engine):
+    """(fdist, indices) through the engine's flow walk."""
+    return flow_distance_index(fdr, river, cfg.px, max_steps=cfg.flow_max_steps, engine=engine)
+
+
 def descriptor_suite(dem, fdr, fac, river, cfg: PipelineConfig = PipelineConfig()):
     """All descriptors of one grid, as a dict of tensors on the inputs' device.
 
@@ -94,15 +124,9 @@ def descriptor_suite(dem, fdr, fac, river, cfg: PipelineConfig = PipelineConfig(
     reference golden (the example feeds int16)."""
     engine = cfg.resolve_engine(dem.device)
     dem_f = dem.to(torch.float32).contiguous()
-    run_stencil = stencil if engine == "cuda" else stencil_plain
-    sl, sl_rad, twi, mtwi = run_stencil(dem_f, fac, cfg.px, cfg.n_topo)
-    down = downslope(
-        dem_f, fdr, cfg.px, cfg.elevation_difference,
-        max_steps=cfg.downslope_max_steps, engine=engine,
-    )
-    fdist, indices = flow_distance_index(
-        fdr, river, cfg.px, max_steps=cfg.flow_max_steps, engine=engine
-    )
+    sl, sl_rad, twi, mtwi = _engine_stencil(dem_f, fac, cfg, engine)
+    down = _engine_downslope(dem_f, fdr, cfg, engine)
+    fdist, indices = _engine_flow(fdr, river, cfg, engine)
     hand, river_fac = hand_and_river_fac(dem, fac, indices)
     geofi = _gfi(hand, river_fac, cfg.n_gfi, cfg.b_gfi, cfg.px)
     lnhlh = ln_hl_h(hand, fac, cfg.n_gfi, cfg.b_gfi, cfg.px)
@@ -120,6 +144,80 @@ def descriptor_suite(dem, fdr, fac, river, cfg: PipelineConfig = PipelineConfig(
     )
 
 
+def run_suite_checkpointed(dem, fdr, fac, river, cfg: PipelineConfig, ckpt_dir, stats=None):
+    """Descriptor suite with durable stage-boundary checkpoints.
+
+    Four stages (stencil, walks, flow, pointwise) each save their rasters
+    to ``ckpt_dir`` as an atomic ``.npz``; a rerun after a kill resumes
+    after the last COMPLETE stage, with the saved rasters back on the
+    inputs' device in the dtypes they were saved with, and reproduces the
+    uninterrupted outputs bitwise.  A manifest guards against resuming
+    with a different grid or config.  Returns the stage rasters as a dict
+    of tensors (the suite's keys plus ``river_fac``).
+
+    ``descriptor_suite`` stays the fast path; this driver is for runs
+    long enough that a restart from zero hurts.  ``stats`` (a dict, filled
+    in place) gets one entry per stage: ``resumed`` (loaded, not
+    computed), ``seconds`` (host clock, compute and save, or load) and
+    ``saved_bytes`` / ``loaded_bytes`` (the rasters' bytes).
+    """
+    from descriptools_tpu_torch.utils import checkpoint as ckpt
+
+    engine = cfg.resolve_engine(dem.device)
+    device = dem.device
+    manifest = dict(
+        shape=[int(s) for s in dem.shape], dem_dtype=str(dem.dtype).removeprefix("torch."),
+        **{k: (v if isinstance(v, (int, float, str)) else str(v))
+           for k, v in dataclasses.asdict(cfg).items()},
+    )
+    ckpt.check_manifest(ckpt_dir, manifest)
+    stats = {} if stats is None else stats
+    state = {}
+
+    def stage(name, fn):
+        path = os.path.join(ckpt_dir, name)
+        t0 = time.perf_counter()
+        if ckpt.stage_exists(path):
+            loaded = ckpt.load_stage(path)
+            state.update({k: torch.from_numpy(v).to(device) for k, v in loaded.items()})
+            nbytes = sum(v.nbytes for v in loaded.values())
+            stats[name] = dict(resumed=True, seconds=time.perf_counter() - t0,
+                               saved_bytes=0, loaded_bytes=nbytes)
+            return
+        out = fn()
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        ckpt.save_stage(path, host)
+        state.update(out)
+        stats[name] = dict(resumed=False, seconds=time.perf_counter() - t0,
+                           saved_bytes=sum(v.nbytes for v in host.values()), loaded_bytes=0)
+
+    dem_f = dem.to(torch.float32).contiguous()
+
+    def _stencil():
+        return dict(zip(("slope", "slope_rad", "twi", "mod_twi"),
+                        _engine_stencil(dem_f, fac, cfg, engine)))
+
+    def _walks():
+        return dict(downslope=_engine_downslope(dem_f, fdr, cfg, engine))
+
+    def _flow():
+        fdist, indices = _engine_flow(fdr, river, cfg, engine)
+        hand, river_fac = hand_and_river_fac(dem, fac, indices)
+        return dict(fdist=fdist, indices=indices, hand=hand, river_fac=river_fac)
+
+    def _pointwise():
+        return dict(
+            gfi=_gfi(state["hand"], state["river_fac"], cfg.n_gfi, cfg.b_gfi, cfg.px),
+            ln_hl_h=ln_hl_h(state["hand"], fac, cfg.n_gfi, cfg.b_gfi, cfg.px),
+        )
+
+    stage("stencil", _stencil)
+    stage("walks", _walks)
+    stage("flow", _flow)
+    stage("pointwise", _pointwise)
+    return state
+
+
 def classify_flood(hand, flood, under="under"):
     """Calibrate a threshold on HAND and classify, exactly like
     Example/example.py:106-147.  Returns (threshold, correctness, fit,
@@ -135,3 +233,17 @@ def classify_flood(hand, flood, under="under"):
     binary = oracle.binary_map_oracle(desc, th, under)
     c, f, class_map = oracle.confusion_oracle(binary, flood)
     return th, c, f, class_map.astype(np.uint8)
+
+
+def run_example(example_dir, cfg: PipelineConfig = PipelineConfig(), device="cpu"):
+    """Full pipeline on a basin directory (the reference Example layout):
+    descriptors on ``device``, then the classification.  Returns numpy
+    descriptors plus threshold, correctness, fit and class_map."""
+    from descriptools_tpu_torch.io import load_example_inputs
+
+    data = load_example_inputs(example_dir)
+    inputs = inputs_to_torch(data["dem"], data["fdr"], data["fac"], data["river"], device)
+    out = {k: v.cpu().numpy() for k, v in descriptor_suite(*inputs, cfg).items()}
+    th, c, f, class_map = classify_flood(out["hand"], data["flood"])
+    out.update(threshold=th, correctness=c, fit=f, class_map=class_map)
+    return out

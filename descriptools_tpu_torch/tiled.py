@@ -138,6 +138,18 @@ def _global_indices(ix_t, C, cols):
     return np.where(ix_t == NODATA, NODATA, (ix_t // C) * cols + ix_t % C)
 
 
+def _tile_engine(engine, device):
+    """``pipeline.resolve_engine``, refusing the fold engines: the tiled
+    fdist is formed from step counts carried through the ring."""
+    engine = resolve_engine(engine, device)
+    if engine.endswith("_blocked"):
+        raise ValueError(
+            f"engine={engine!r}: the tiled path forms fdist from step counts "
+            "through the ring; use 'cuda', 'torch' or 'auto'"
+        )
+    return engine
+
+
 def tiled_flow_hand(dem, fdr, river, fac, px, device, tile_rows=2048, tile_cols=2048,
                     max_steps=FLOW_MAX_STEPS, engine="auto"):
     """Flow distance / indices / HAND / river-fac, one tile on the card at a
@@ -147,9 +159,10 @@ def tiled_flow_hand(dem, fdr, river, fac, px, device, tile_rows=2048, tile_cols=
     river_fac).  Indices and HAND are bitwise the in-core suite's, and so is
     fdist (formed from integer step counts).  ``engine`` is one of
     ``pipeline.ENGINES``: ``"auto"`` runs each tile's local walk in the
-    absorbing-walk kernel on a CUDA device.
+    absorbing-walk kernel on a CUDA device; the ``*_blocked`` engines are
+    refused.
     """
-    engine = resolve_engine(engine, device)
+    engine = _tile_engine(engine, device)
     shape = np.asarray(dem).shape
     ny, nx, R, C = _tile_grid(shape, tile_rows, tile_cols)
     _check_int32(R, C)
@@ -252,7 +265,8 @@ def tiled_suite(loaders, shape, cfg, device, tile_rows=4096, tile_cols=4096,
     (windowed GeoTIFF/Zarr readers, or utils.synthetic.windowed_basin).  The
     dem loader should return an integer dtype for bitwise HAND parity.
     ``cfg`` is a ``pipeline.PipelineConfig``; its engine resolves against
-    ``device`` as in ``pipeline.descriptor_suite``.
+    ``device`` as in ``pipeline.descriptor_suite``, and the ``*_blocked``
+    engines are refused.
 
     Returns the same keys as ``pipeline.descriptor_suite``; values are numpy
     arrays, or memmaps under ``out_dir``.  Integer outputs, downslope, slope
@@ -276,7 +290,7 @@ def tiled_suite(loaders, shape, cfg, device, tile_rows=4096, tile_cols=4096,
     suite_write_wait_s, ``pass_s`` (wall seconds of passes A, B, C) and
     ``link`` (host<->device bytes and seconds per pass, see :class:`_Link`).
     """
-    engine = resolve_engine(cfg.engine, device)
+    engine = _tile_engine(cfg.engine, device)
     device = torch.device(device)
     rows, cols = shape
     h, w = tile_rows, tile_cols

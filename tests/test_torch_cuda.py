@@ -62,7 +62,7 @@ def test_suite_runs_every_kernel_and_matches_plain(dev, basin):
     out = pipeline.descriptor_suite(*inputs)
     assert launch_counters() == dict(
         stencil=1, downslope_walk=1, flow_walk=1,
-        stencil_padded=0, absorbing_walk=0, downslope_walk_tracked=0,
+        stencil_padded=0, absorbing_walk=0, downslope_walk_tracked=0, flow_walk_blocked=0,
     )
     plain = pipeline.descriptor_suite(*inputs, pipeline.PipelineConfig(engine="torch"))
     for k in ("slope", "downslope", "fdist", "indices", "hand"):
@@ -131,3 +131,39 @@ def test_tiled_suite_runs_the_tile_kernels_and_matches_incore(dev):
         np.testing.assert_array_equal(got[k], want[k].cpu().numpy(), err_msg=k)
     for k in ("slope_rad", "twi", "mod_twi", "gfi", "ln_hl_h"):
         np.testing.assert_allclose(got[k], want[k].cpu().numpy(), rtol=2e-5, atol=1e-4, err_msg=k)
+
+
+def test_flow_walk_blocked_kernel_matches_fold_walk(dev, basin):
+    def lateral(rows, cols):
+        fdr = np.full((rows, cols), 1, np.uint8)
+        fdr[:, -1] = 64
+        river = np.zeros((rows, cols), np.int8)
+        river[0, -1] = 1
+        return fdr, river
+
+    cases = [(basin["fdr"], basin["river"], 20000), (*lateral(150, 170), 20000), (*lateral(150, 170), 37)]
+    for fdr, river, max_steps in cases:
+        ops = flow.walk_inputs(torch.as_tensor(fdr, device=dev), torch.as_tensor(river, device=dev))
+        consts = flow.step_consts(12.5)
+        got = walk.flow_walk_blocked(*ops, *consts, max_steps)
+        want = flow.fold_walk(*ops, *consts, max_steps)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        idx = flow.flow_from_state(*walk.flow_walk(*ops, max_steps), 12.5, max_steps)[1]
+        assert torch.equal(flow.flow_from_fold(*got)[1], idx)
+
+
+def test_checkpointed_cuda_blocked_matches_the_fused_suite(dev, basin, tmp_path):
+    inputs = pipeline.inputs_to_torch(basin["dem"], basin["fdr"], basin["fac"], basin["river"], dev)
+    cfg = pipeline.PipelineConfig(engine="cuda_blocked")
+    reset_launch_counters()
+    out = pipeline.run_suite_checkpointed(*inputs, cfg, str(tmp_path / "ck"))
+    n = launch_counters()
+    assert n["flow_walk_blocked"] == 1 and n["stencil"] == 1 and n["downslope_walk"] == 1
+    assert n["flow_walk"] == 0
+    fused = pipeline.descriptor_suite(*inputs, cfg)
+    for k in fused:
+        assert out[k].device == fused[k].device and torch.equal(out[k], fused[k]), k
+    plain = pipeline.descriptor_suite(*inputs, pipeline.PipelineConfig(engine="torch_blocked"))
+    for k in ("slope", "downslope", "fdist", "indices", "hand"):
+        assert torch.equal(fused[k], plain[k]), k

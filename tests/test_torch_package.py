@@ -1,6 +1,6 @@
 """Rules of the PyTorch port's package and of chip_smoke.py.
 
-- the port imports neither jax nor descriptools_tpu;
+- the port imports neither jax, orbax nor descriptools_tpu;
 - chip_smoke.py imports neither, fails fast without a GPU, and prints no
   result when it fails;
 - the CUDA route refuses CPU tensors and a missing compiler.
@@ -24,7 +24,7 @@ SMOKE = ROOT / "chip_smoke.py"
 
 
 def _forbidden(name):
-    return name.split(".")[0] in ("jax", "jaxlib", "descriptools_tpu")
+    return name.split(".")[0] in ("jax", "jaxlib", "orbax", "descriptools_tpu")
 
 
 def _env():
@@ -39,10 +39,11 @@ def test_port_imports_no_jax():
         "import descriptools_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'descriptools_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'descriptools_tpu')]\n"
-        "need = {'descriptools_tpu_torch.' + m for m in ('tiled', 'parallel.boundary', 'parallel.classify')}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'orbax', 'descriptools_tpu')]\n"
+        "need = {'descriptools_tpu_torch.' + m for m in ('tiled', 'parallel.boundary', 'parallel.classify',\n"
+        "        'io', 'utils.checkpoint', '__main__')}\n"
         "print(len(mods), bad, need - set(mods))\n"
-        "sys.exit(1 if bad or len(mods) < 16 or need - set(mods) else 0)\n"
+        "sys.exit(1 if bad or len(mods) < 19 or need - set(mods) else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
@@ -104,8 +105,9 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_key_follows_the_sources():
     names = {p.name for p in build.sources()}
-    assert names == {"stencil.cu", "walk.cu"}
+    assert names == {"flow_fold.cu", "stencil.cu", "walk.cu"}
     assert len(build.source_key()) == 16
+    assert (build.CSRC / "d8.cuh").is_file()  # hashed with the sources
     assert str(build.BUILD_DIR.relative_to(ROOT)) == os.path.join("build", "torch_kernels")
 
 
@@ -123,7 +125,11 @@ def test_entry_points_match_the_sources_and_the_counters():
     reset_launch_counters()
     assert launch_counters() == dict.fromkeys(
         ("stencil", "downslope_walk", "flow_walk", "stencil_padded", "absorbing_walk",
-         "downslope_walk_tracked"), 0)
+         "downslope_walk_tracked", "flow_walk_blocked"), 0)
+    # Each launcher has a wrapper that names it.
+    wrappers = "".join(p.read_text() for p in (ROOT / "descriptools_tpu_torch" / "ops" / "cuda").glob("*.py"))
+    for name in declared:
+        assert f'"{name}"' in wrappers, name
 
 
 def test_build_compiles_each_source_and_links_them(monkeypatch, tmp_path):
