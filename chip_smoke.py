@@ -11,14 +11,21 @@ Phases, each printing its own lines:
    basin's shape (2178x1534, synthetic) and on adversarial fixtures
    (long northward walks, with and without ascending bumps; a lateral
    channel; a 40000-step serpentine, under and over the cap; 2-cell
-   cycles; NaN absorbers); the tiled path's kernels on tile operands
-   (basin windows and tiles, a lateral channel cut into tiles, a flat
-   eastward walk and a ramp cut by a window edge);
+   cycles; NaN absorbers; northward flow into a river row every 101
+   rows; rows that reach the jump walk's cap at B * 2^5 - 1, + 0 and + 1
+   steps); one flow walk under
+   ``torch.cuda.set_sync_debug_mode("error")``; the tiled path's kernels
+   on tile operands (basin windows and tiles, a lateral channel cut into
+   tiles, a flat eastward walk and a ramp cut by a window edge);
 2. the in-core path: ``descriptor_suite`` on CUDA tensors (the kernels
    run), then ``classify_flood``, held against the ``engine="torch"`` run
    on the same card, with every kernel's launch count checked;
-3. timing: the suite and each kernel beside its plain version, median of 5
-   runs after one warm-up, with CUDA events;
+3. timing: the suite and each kernel beside its plain version and its
+   bound, median of 5 runs after one warm-up, with CUDA events; the jump
+   walk on the basin, the north rivers (walks of 0 to 100 steps), the
+   lateral channel and the serpentine: its time (CUDA events), its phase 1
+   and rounds apart (device time by kernel from torch.profiler), R and the
+   cells entering each round;
 4. the out-of-core path: ``tiled_suite`` at 8192x8192 in 4096x4096 tiles
    through the tile kernels, held against the in-core suite of the same
    grid; a forced truncation retry; ``tiled_classify_flood`` against
@@ -93,6 +100,14 @@ BITWISE = ("indices", "hand", "downslope", "slope", "fdist")
 CLOSE = ("slope_rad", "twi", "mod_twi", "gfi", "ln_hl_h")
 BIG = 8192  # the tiled phase's grid side: 67,108,864 cells
 TILE = 4096  # the JAX package's default tile side
+# The H100 SXM's published peaks (NVIDIA's data sheet) at 700 W: 3.35 TB/s
+# of device memory, 67 TFLOP/s f32 outside the tensor cores; per ms.
+HBM_BYTES_PER_MS = 3.35e9
+F32_OPS_PER_MS = 67e9
+# The stencils' operations per cell: 8 drops, divisions and maxima, then
+# atan, tan, log and pow (about 100).  A walk's least work is a few
+# integer operations per cell, far under its bytes: its bound is the bytes.
+STENCIL_OPS = 100
 
 
 def card_line():
@@ -146,6 +161,70 @@ def median_ms(fn):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def timed(inputs, fn, plain, ops_per_cell=0):
+    """The kernel call ``fn`` and its plain version ``plain`` (median_ms),
+    with the call's bound: its inputs read once and its outputs written once
+    at the card's memory rate, or ``ops_per_cell`` operations per output
+    cell at its f32 rate, whichever takes longer."""
+    outputs = fn()
+    moved = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    by_bytes = moved / HBM_BYTES_PER_MS
+    by_ops = ops_per_cell * outputs[0].numel() / F32_OPS_PER_MS
+    return dict(ms=median_ms(fn), plain_ms=median_ms(plain), bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def device_ms(fn, names):
+    """Device time per call of ``fn`` (torch.profiler, REPEATS calls after
+    one warm-up), summed over the kernels whose name holds each of
+    ``names``: {name: ms}, None where the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPEATS):
+            fn()
+        torch.cuda.synchronize()
+    found = dict.fromkeys(names, 0.0)
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        for name in names:
+            if name in ev.key:
+                found[name] += us / 1e3 / REPEATS
+    return {k: (v or None) for k, v in found.items()}
+
+
+def jump_profile(cases, card):
+    """The jump walk (``flow_walk``) on each case, held bitwise against
+    ``doubling_walk``: its time (CUDA events) beside the plain version's,
+    its device time by phase (torch.profiler: the memset, phase 1 and the
+    rounds), R and the cells entering each round (read after a
+    synchronisation, here only)."""
+    from descriptools_tpu_torch.ops import flow
+    from descriptools_tpu_torch.ops.cuda import walk
+
+    bound = walk.jump_bound()
+    for label, (ops, cap) in cases.items():
+        want = flow.doubling_walk(*ops, cap)
+        got = walk.flow_walk(*ops, cap)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("code", "a", "b"), got, want):
+            check_bitwise(f"jump/{label}/{name}", g, w)
+        pending, rounds = walk.flow_walk.pending.tolist(), walk.flow_walk.rounds
+        whole = median_ms(lambda: walk.flow_walk(*ops, cap))
+        plain_ms = median_ms(lambda: flow.doubling_walk(*ops, cap))
+        steps = got[1] + got[2]
+        print(f"jump flow_walk {label}: B {bound}, R {rounds}, cells entering each round "
+              f"{pending[:-1]} ({pending[0]} pending after phase 1); walk steps mean "
+              f"{float(steps.float().mean()):.3f}, max {int(steps.max())}; kernel {whole:.3f} ms, "
+              f"plain doubling_walk {plain_ms:.3f} ms  [{card}]")
+        dev_ms = device_ms(lambda: walk.flow_walk(*ops, cap), ("Memset", "jump_start", "jump_round"))
+        shown = {k: "not measured" if v is None else f"{v:.4f} ms" for k, v in dev_ms.items()}
+        print(f"jump device time {label} (torch.profiler, per call): memset {shown['Memset']}, "
+              f"phase 1 {shown['jump_start']}, {rounds} rounds {shown['jump_round']}  [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +291,25 @@ def two_cell_cycles(rows=512, cols=640):
     fdr[10::37, 200], fdr[10::37, 201] = 1, 16
     fdr[30, 450], fdr[31, 450] = 4, 64
     return fdr, river
+
+
+def north_rivers(rows, cols, spacing=101):
+    """Northward flow into a river row every ``spacing`` rows: walks of 0 to
+    spacing - 1 steps, about as long as a real basin's longest."""
+    fdr = np.full((rows, cols), 64, np.uint8)
+    river = np.zeros((rows, cols), np.int8)
+    river[::spacing] = 1
+    return fdr, river
+
+
+def b_boundary(bound, k, delta, rows=64):
+    """Eastward rows of bound * 2^k + 1 steps into a river column, at a cap
+    of bound * 2^k + delta: the rows' first cells land only for delta > 0."""
+    steps = (bound << k) + 1
+    fdr = np.ones((rows, steps + 1), np.uint8)
+    river = np.zeros((rows, steps + 1), np.int8)
+    river[:, -1] = 1
+    return fdr, river, (bound << k) + delta
 
 
 def nan_absorbers(rows=1000, cols=1200, seed=5):
@@ -333,7 +431,26 @@ def phase_kernels(dev, basin, errs):
     downslope_case(f"tall north {ROWS}x{COLS}", *tall_north(ROWS, COLS, 37), 50.0, 5000)
     flow_case("lateral channel", *lateral_channel(), 1000)
     flow_case(f"lateral channel {ROWS}x{COLS}", *lateral_channel(ROWS, COLS), 20000)
+    flow_case(f"north rivers {ROWS}x{COLS}", *north_rivers(ROWS, COLS), 20000)
     flow_case("serpentine 200x200", *serpentine(), 60000)
+    flow_case("serpentine 200x200, cap 20000", *serpentine(), 20000)
+    flow_case("2-cell cycles 512x640", *two_cell_cycles(), 20000)
+    flow_case("NaN absorbers 1000x1200", *nan_absorbers(), 20000)
+    for delta in (-1, 0, 1):
+        fdr, river, cap = b_boundary(walk.jump_bound(), 5, delta)
+        flow_case(f"B-boundary row, cap {cap}", fdr, river, cap)
+    # No hidden host synchronisation in the walk's launches.
+    fl = flow.walk_inputs(*(torch.as_tensor(t, device=dev) for t in lateral_channel(ROWS, COLS)))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = walk.flow_walk(*fl, 20000)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for name, g, w in zip(("code", "a", "b"), got, flow.doubling_walk(*fl, 20000)):
+        check_bitwise(f"flow/sync debug/{name}", g, w)
+    print(f"kernel flow_walk      lateral channel {ROWS}x{COLS} under sync debug mode 'error': "
+          f"no host synchronisation, matches plain bitwise")
     fold_case(f"basin {ROWS}x{COLS}", basin["fdr"], basin["river"], 20000)
     fold_case(f"lateral channel {ROWS}x{COLS}", *lateral_channel(ROWS, COLS), 20000)
     fold_case("serpentine 200x200, cap 60000", *serpentine(), 60000)
@@ -409,22 +526,19 @@ def phase_timing(dev, inputs, card):
     dem_f = dem.to(torch.float32)
     d_ops = down.walk_inputs(dem_f, fdr, 12.5)
     f_ops = flow.walk_inputs(fdr, river)
-    times = {
-        "stencil": (
-            median_ms(lambda: st.stencil(dem_f, fac, 12.5, 0.1)),
-            median_ms(lambda: st.stencil_plain(dem_f, fac, 12.5, 0.1)),
-        ),
-        "downslope_walk": (
-            median_ms(lambda: walk.downslope_walk(*d_ops, 5.0, 5000)),
-            median_ms(lambda: down.jacobi_walk(*d_ops, 5.0, 5000)),
-        ),
-        "flow_walk": (
-            median_ms(lambda: walk.flow_walk(*f_ops, 20000)),
-            median_ms(lambda: flow.doubling_walk(*f_ops, 20000)),
-        ),
+    stencil_in = (dem_f, fac)
+    calls = {
+        "stencil": (stencil_in, lambda: st.stencil(*stencil_in, 12.5, 0.1),
+                    lambda: st.stencil_plain(*stencil_in, 12.5, 0.1), STENCIL_OPS),
+        "downslope_walk": (d_ops, lambda: walk.downslope_walk(*d_ops, 5.0, 5000),
+                           lambda: down.jacobi_walk(*d_ops, 5.0, 5000), 0),
+        "flow_walk": (f_ops, lambda: walk.flow_walk(*f_ops, 20000),
+                      lambda: flow.doubling_walk(*f_ops, 20000), 0),
     }
-    for name, (ms, plain_ms) in times.items():
-        print(f"time {name:<15} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
+    times = {name: timed(*call) for name, call in calls.items()}
+    for name, t in times.items():
+        print(f"time {name:<15} kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
     pk, _ = walk.downslope_walk(*d_ops, 5.0, 5000)
     _, a, b = walk.flow_walk(*f_ops, 20000)
     for name, steps in (("downslope", (pk & 0xFFFF) + (pk >> 16)), ("flow", a + b)):
@@ -435,14 +549,19 @@ def phase_timing(dev, inputs, card):
     dn = down.walk_inputs(torch.as_tensor(dem_n, device=dev), torch.as_tensor(fdr_n, device=dev), 12.5)
     fdr_l, river_l = lateral_channel(ROWS, COLS)
     fl = flow.walk_inputs(torch.as_tensor(fdr_l, device=dev), torch.as_tensor(river_l, device=dev))
+    fs = flow.walk_inputs(*(torch.as_tensor(t, device=dev) for t in serpentine()))
+    fn = flow.walk_inputs(*(torch.as_tensor(t, device=dev) for t in north_rivers(ROWS, COLS)))
+    jump_cases = {
+        f"basin {ROWS}x{COLS}": (f_ops, 20000),
+        f"north rivers {ROWS}x{COLS} (walks of 0 to 100 steps)": (fn, 20000),
+        f"lateral channel {ROWS}x{COLS} (walks of up to {ROWS + COLS - 2} steps)": (fl, 20000),
+        "serpentine 200x200 (one 40000-step path), cap 60000": (fs, 60000),
+    }
+    jump_profile(jump_cases, card)
     long_walks = {
         "downslope_walk, tall north (100-step walks), ed 50": (
             median_ms(lambda: walk.downslope_walk(*dn, 50.0, 5000)),
             median_ms(lambda: down.jacobi_walk(*dn, 50.0, 5000)),
-        ),
-        f"flow_walk, lateral channel (walks of up to {ROWS + COLS - 2} steps)": (
-            median_ms(lambda: walk.flow_walk(*fl, 20000)),
-            median_ms(lambda: flow.doubling_walk(*fl, 20000)),
         ),
     }
     consts = flow.step_consts(12.5)
@@ -647,22 +766,28 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs):
     ed, down_steps, flow_steps = cfg.elevation_difference, cfg.downslope_max_steps, cfg.flow_max_steps
     pairs = {
         "stencil_padded": (
+            (padded, fac_t),
             lambda: st.stencil_padded(padded, fac_t, cfg.px, cfg.n_topo),
             lambda: st.stencil_padded_plain(padded, fac_t, cfg.px, cfg.n_topo),
+            STENCIL_OPS,
             ("slope", "slope_rad", "twi", "mod_twi"),
         ),
         "absorbing_walk": (
+            loc,
             lambda: walk.absorbing_walk(*loc, flow_steps),
             lambda: flow.doubling_walk(*loc, flow_steps),
+            0,
             ("code", "a", "b"),
         ),
         "downslope_walk_tracked": (
+            (*d_ops, tr0),
             lambda: walk.downslope_walk_tracked(*d_ops, ed, down_steps, tr0),
             lambda: down.jacobi_walk(*d_ops, ed, down_steps, tr0),
+            0,
             ("pk", "Zt", "trunc"),
         ),
     }
-    for kernel, (fn, plain, names) in pairs.items():
+    for kernel, (_, fn, plain, _, names) in pairs.items():
         e = 0.0
         for name, g, w in zip(names, fn(), plain()):
             check = check_close if name in ("slope_rad", "twi", "mod_twi") else check_bitwise
@@ -670,9 +795,13 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs):
         errs[kernel] = max(errs[kernel], e)
         print(f"kernel {kernel:<22} one {TILE}x{TILE} tile's operands: matches plain "
               f"({', '.join(names)}; max_abs_err {e:.3g})")
-    times = {kernel: (median_ms(fn), median_ms(plain)) for kernel, (fn, plain, _) in pairs.items()}
-    for name, (ms, plain_ms) in times.items():
-        print(f"time {name:<22} one {TILE}x{TILE} tile: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
+    times = {kernel: timed(*call[:4]) for kernel, call in pairs.items()}
+    torch.cuda.synchronize()
+    print(f"jump absorbing_walk one {TILE}x{TILE} tile: R {walk.absorbing_walk.rounds}, cells entering "
+          f"each round {walk.absorbing_walk.pending.tolist()[:-1]}")
+    for name, t in times.items():
+        print(f"time {name:<22} one {TILE}x{TILE} tile: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
     del pairs, inputs, dem, fdr, fac, river, dem_f, padded, loc, d_ext, f_ext, tr0, d_ops
     torch.cuda.empty_cache()
 
@@ -821,14 +950,15 @@ def phase_checkpointed(dev, card, basin, full, errs):
                           flow.fold_walk(*ops, *consts, 20000)):
         e = max(e, check_bitwise(f"fold {BIG}x{BIG}/{name}", g, w))
     errs["flow_walk_blocked"] = max(errs["flow_walk_blocked"], e)
-    ms = median_ms(lambda: walk.flow_walk_blocked(*ops, *consts, 20000))
+    t = timed(ops, lambda: walk.flow_walk_blocked(*ops, *consts, 20000),
+              lambda: flow.fold_walk(*ops, *consts, 20000))
     rounds = walk.flow_walk_blocked.rounds
-    plain_ms = median_ms(lambda: flow.fold_walk(*ops, *consts, 20000))
-    print(f"time flow_walk_blocked {BIG}x{BIG} ({rounds} launches): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+    print(f"time flow_walk_blocked {BIG}x{BIG} ({rounds} launches): kernel {t['ms']:.3f} ms, "
+          f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
           f"matches plain bitwise (code, dist)  [{card}]")
     del ops, inputs
     torch.cuda.empty_cache()
-    return launches, {"flow_walk_blocked": (ms, plain_ms)}
+    return launches, {"flow_walk_blocked": t}
 
 
 def main():
@@ -848,9 +978,10 @@ def main():
     blocked_launches, blocked_times = phase_checkpointed(dev, card, basin, full, errs)
     launches["flow_walk_blocked"] = blocked_launches["flow_walk_blocked"]
     times.update(blocked_times)
+    # No single PyTorch call computes any of these functions: library_ms null.
     kernels = [
         dict(name=name, route="cuda", **meta, launches=launches[name],
-             max_abs_err=errs[name], ms=times[name][0], plain_ms=times[name][1])
+             max_abs_err=errs[name], **times[name], library_ms=None)
         for name, meta in KERNELS.items()
     ]
     print(card)  # name and power limit, as nvidia-smi gives them

@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""Time the port's flow walks and suite in several checkouts, in one call.
+
+    python3 compare_walks.py OLD NEW NEW OLD    # each the root of a checkout
+
+One process per argument, run one after another in the order given, so a
+checkout's numbers can be set beside another's taken on the same card.
+Each process puts its checkout first on ``sys.path``: ``descriptools_tpu_torch``
+and its kernels (built into that checkout's ``build/``) come from there.
+The inputs come from this file's directory (``chip_smoke.py``'s
+generators), the same in every process.  Each process times, on one card:
+
+- ``flow_walk`` (K4) at 2178x1534, cap 20000, on the synthetic basin, on
+  northward flow into a river row every 101 rows (walks of 0 to 100 steps)
+  and on the lateral channel (walks of up to 3710 steps);
+- ``absorbing_walk`` (K5/K8) on tile (0, 0) of the tiled phase's 8192x8192
+  grid in 4096x4096 tiles;
+- ``descriptor_suite`` on the synthetic basin, default configuration;
+
+each walk held bitwise against ``doubling_walk``, each time the median of
+20 CUDA-event runs after a warm-up.  Every process prints its numbers; the
+last line is one JSON object with all of them and the card's name and
+power limit.
+"""
+
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+REPEATS = 20
+
+
+def median_ms(torch, fn):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPEATS):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def one(tree):
+    """Time the checkout at ``tree``; print its numbers as one JSON line."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    # This directory's chip_smoke.py, not the checkout's.
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import descriptools_tpu_torch
+    from descriptools_tpu_torch import pipeline
+    from descriptools_tpu_torch.ops import flow
+    from descriptools_tpu_torch.ops.cuda import walk
+    from descriptools_tpu_torch.parallel import boundary
+    from descriptools_tpu_torch.utils.synthetic import windowed_basin
+
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_walks: torch.cuda.is_available() is false")
+    package = os.path.dirname(descriptools_tpu_torch.__file__)
+    if package != os.path.join(os.path.abspath(tree), "descriptools_tpu_torch"):
+        raise SystemExit(f"compare_walks: imported {package}, not the package of {tree}")
+    dev = torch.device("cuda", 0)
+    basin = cs.basin_inputs()
+    inputs = pipeline.inputs_to_torch(basin["dem"], basin["fdr"], basin["fac"], basin["river"], dev)
+    on_dev = lambda arrays: flow.walk_inputs(*(torch.as_tensor(a, device=dev) for a in arrays))
+    cases = {
+        "flow_walk basin": (walk.flow_walk, flow.walk_inputs(inputs[1], inputs[3])),
+        "flow_walk north rivers": (walk.flow_walk, on_dev(cs.north_rivers(cs.ROWS, cs.COLS))),
+        "flow_walk lateral channel": (walk.flow_walk, on_dev(cs.lateral_channel(cs.ROWS, cs.COLS))),
+    }
+    loaders = windowed_basin(cs.BIG, cs.BIG, seed=0)
+    tile = [torch.as_tensor(loaders[k](0, cs.TILE, 0, cs.TILE), device=dev) for k in ("fdr", "river")]
+    loc = boundary.local_walk_operands(*tile, 0, 0, cs.TILE, cs.TILE, cs.BIG, cs.BIG)[:2]
+    cases["absorbing_walk 4096x4096 tile"] = (walk.absorbing_walk, loc)
+    ms = {}
+    for label, (fn, ops) in cases.items():
+        for name, g, w in zip(("code", "a", "b"), fn(*ops, 20000), flow.doubling_walk(*ops, 20000)):
+            cs.check_bitwise(f"{label}/{name}", g, w)
+        ms[label] = median_ms(torch, lambda: fn(*ops, 20000))
+    cfg = pipeline.PipelineConfig()
+    ms["descriptor_suite basin"] = median_ms(torch, lambda: pipeline.descriptor_suite(*inputs, cfg))
+    # B of a tree with the jump walk; None for one with the serial walk.
+    bound = walk.jump_bound() if hasattr(walk, "jump_bound") else None
+    print(json.dumps({"tree": tree, "package": package, "B": bound, "ms": ms}))
+
+
+def main(trees):
+    import chip_smoke as cs
+
+    runs = []
+    for tree in trees:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
+                             capture_output=True, text=True)
+        sys.stderr.write(out.stderr[-4000:])
+        if out.returncode != 0:
+            raise SystemExit(f"compare_walks: {tree} failed ({out.returncode})")
+        run = json.loads(out.stdout.strip().splitlines()[-1])
+        runs.append(run)
+        print(f"{tree} (B {run['B']}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in run["ms"].items()))
+    card = cs.card_line()
+    print(card)
+    print(json.dumps({"card": card, "repeats": REPEATS, "runs": runs}))
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--one"]:
+        one(sys.argv[2])
+    elif len(sys.argv) > 1:
+        main(sys.argv[1:])
+    else:
+        raise SystemExit(__doc__)

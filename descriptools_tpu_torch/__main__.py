@@ -32,14 +32,9 @@ def main(argv=None):
     ap.add_argument("--engine", default="auto", choices=ENGINES)
     args = ap.parse_args(argv)
 
-    import torch
-
     from descriptools_tpu_torch.io import write_raster
     from descriptools_tpu_torch.pipeline import PipelineConfig, run_example
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is available")
     cfg = PipelineConfig(
         px=args.px,
         elevation_difference=args.elevation_difference,
@@ -49,7 +44,7 @@ def main(argv=None):
         engine=args.engine,
     )
     t0 = time.time()
-    out = run_example(args.basin, cfg, device)
+    out = run_example(args.basin, cfg, args.device)
     wall = time.time() - t0
     print(
         json.dumps(

@@ -49,9 +49,12 @@ SIGNATURES = {
     "launch_downslope_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
     # fdr_eff, z, zt0, trunc0, pk, zt, trunc, rows, cols, ed, max_steps, stream
     "launch_downslope_walk_tracked": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
-    # fdr_eff, code0, code, a, b, rows, cols, max_steps, stream
-    "launch_flow_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
-    "launch_absorbing_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    # the jump walk: fdr_eff, code0, code, a, b, counts, n_counts, scratch,
+    # rows, cols, max_steps, rounds (int*, host), stream
+    "launch_jump_walk": [
+        _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _I, ctypes.POINTER(_I), _VP,
+    ],
+    "jump_walk_bound": [],
     # fdr_eff, code0, code, dist, code_b, dist_b, flags, n_flags, rows, cols,
     # c_card, c_diag, max_steps, launches (int*, host), stream
     "launch_flow_walk_blocked": [

@@ -1,9 +1,9 @@
 """The downslope, flow and absorbing walks on the card.
 
-Wrappers of ``csrc/walk.cu``, one serial walk per CUDA thread:
+Wrappers of ``csrc/walk.cu``:
 
 - :func:`downslope_walk` replaces ``descriptools_tpu/ops/pallas/walk_vmem.py
-  ::_downslope_kernel``; its plain version is
+  ::_downslope_kernel``, one serial walk per CUDA thread; its plain version is
   ``ops.downslope.jacobi_walk``.  The serial walk is exact for any fdr,
   so the JAX wrapper's monotone-descent probe and its fallback branch have
   no counterpart here.
@@ -19,6 +19,10 @@ Wrappers of ``csrc/walk.cu``, one serial walk per CUDA thread:
   ``walk_vmem.py::_walk3_kernel`` and ``walk.py::_walk3_kernel`` (the
   local phase of ``parallel.boundary``); its plain version is
   ``ops.flow.doubling_walk`` on the same operands.
+  The flow and absorbing walks are one jump walk: a serial walk of at most
+  B (:func:`jump_bound`) steps per thread, then pointer-jumping rounds over
+  the cells still walking, queued on the stream with no host read
+  (``csrc/walk.cu`` says how).
 - :func:`flow_walk_blocked` (``csrc/flow_fold.cu``) replaces
   ``walk.py::_flow_kernel``, the JAX blocked flow tier; its plain version
   is ``ops.flow.fold_walk``.  It forms fdist as the right fold of the step
@@ -96,42 +100,74 @@ def downslope_walk_tracked(fdr_eff, z, zt0, elevation_difference, max_steps, tru
 downslope_walk_tracked.launches = 0
 
 
-def _absorber_walk(entry, counted, fdr_eff, code0, max_steps):
-    """Launch ``entry`` (flow or absorbing walk): (code, a, b) int32."""
+JUMP_MAX_STEPS = 1 << 30  # the counts' sums stay below 2^31 under this cap
+# Lengths of the jump walk's lists, one a round and the last list's: R + 1,
+# and R <= 30 for any B >= 1 under JUMP_MAX_STEPS.
+_JUMP_COUNTS = 32
+
+
+def jump_bound():
+    """B, the steps of the jump walk's phase 1 (``csrc/walk.cu`` kJumpB)."""
+    return build.library().jump_walk_bound()
+
+
+def _check_jump_max_steps(max_steps):
+    if max_steps >= JUMP_MAX_STEPS:
+        raise ValueError(f"max_steps {max_steps} >= 2^30 would overflow the step counts")
+
+
+def _jump_walk(counted, fdr_eff, code0, max_steps):
+    """The jump walk: (code, a, b) int32.  Sets ``counted.rounds`` (R) and
+    ``counted.pending`` (a device tensor: ``pending[k]`` cells entered
+    round k)."""
     shape = tuple(code0.shape)
     build.check_cuda_tensor(fdr_eff, "fdr_eff", torch.int32, shape)
     build.check_cuda_tensor(code0, "code0", torch.int32, shape)
+    dev = code0.device
     code, a, b = (torch.empty_like(code0) for _ in range(3))
-    with torch.cuda.device(code0.device):
+    counts = torch.empty(_JUMP_COUNTS, dtype=torch.int32, device=dev)  # zeroed by the launcher
+    # Two int2 state buffers, done and two lists: 28 B a cell.
+    scratch = torch.empty(7 * code0.numel(), dtype=torch.int32, device=dev)
+    rounds = ctypes.c_int(0)
+    with torch.cuda.device(dev):
         build.launch(
-            entry, fdr_eff.data_ptr(), code0.data_ptr(), code.data_ptr(), a.data_ptr(),
-            b.data_ptr(), shape[0], shape[1], int(max_steps),
-            build.stream_handle(code0.device),
+            "launch_jump_walk", fdr_eff.data_ptr(), code0.data_ptr(), code.data_ptr(),
+            a.data_ptr(), b.data_ptr(), counts.data_ptr(), counts.numel(), scratch.data_ptr(),
+            shape[0], shape[1], int(max_steps), ctypes.byref(rounds), build.stream_handle(dev),
         )
     counted.launches += 1
+    counted.rounds = rounds.value
+    counted.pending = counts[: rounds.value + 1]
     return code, a, b
 
 
 def flow_walk(fdr_eff, code0, max_steps):
     """(code, a, b) int32: absorber code and cardinal/diagonal step counts."""
+    _check_jump_max_steps(max_steps)
     if not code0.is_cuda:
         return _flow.doubling_walk(fdr_eff, code0, max_steps)
-    return _absorber_walk("launch_flow_walk", flow_walk, fdr_eff, code0, max_steps)
+    return _jump_walk(flow_walk, fdr_eff, code0, max_steps)
 
 
 flow_walk.launches = 0
+flow_walk.rounds = 0
+flow_walk.pending = None
 
 
 def absorbing_walk(fdr_eff, code0, max_steps):
     """(code, a, b) int32 of a block's local walk: ``code0`` holds the
     absorber's local index at every absorbing cell, UNRES elsewhere; where
-    no absorber is reached within ``max_steps``, (UNRES, 0, 0)."""
+    no absorber is reached within ``max_steps``, (UNRES, 0, 0).  The same
+    jump walk as :func:`flow_walk`, under its own counter."""
+    _check_jump_max_steps(max_steps)
     if not code0.is_cuda:
         return _flow.doubling_walk(fdr_eff, code0, max_steps)
-    return _absorber_walk("launch_absorbing_walk", absorbing_walk, fdr_eff, code0, max_steps)
+    return _jump_walk(absorbing_walk, fdr_eff, code0, max_steps)
 
 
 absorbing_walk.launches = 0
+absorbing_walk.rounds = 0
+absorbing_walk.pending = None
 
 
 def downslope_cuda(dem, fdr, px, elevation_difference, max_steps):

@@ -12,7 +12,8 @@ answer) or a NaN absorber (dead end, border exit, fdr 0), within
   cardinal and diagonal step counts, or ``(UNRES, 0, 0)`` where no absorber
   is reached within ``max_steps`` (cycles, over-long paths).
   :func:`doubling_walk` is the plain engine; ``ops.cuda.walk.flow_walk``
-  runs one serial walk per CUDA thread;
+  runs the jump walk (a bounded serial walk per CUDA thread, then pointer
+  jumping over the cells still walking);
 - :func:`flow_from_state` forms fdist and indices post-pass, from the
   integer counts, as ``walk_vmem.flow_pallas_vmem`` does.
 
@@ -154,7 +155,7 @@ def flow_distance_index(fdr, river, px, max_steps=FLOW_MAX_STEPS, engine="torch"
     """Flow distance + river-cell flat index for a whole grid.
 
     Returns (fdist float32, indices int32).  ``engine="torch"`` runs the
-    plain count engine on any device, ``"cuda"`` the serial-walk kernel
+    plain count engine on any device, ``"cuda"`` the jump-walk kernels
     (``ops.cuda.walk.flow_cuda``); ``"torch_blocked"`` the plain fold
     engine, ``"cuda_blocked"`` the fold kernel
     (``ops.cuda.walk.flow_blocked_cuda``).  Indices are the same for all

@@ -235,12 +235,17 @@ def classify_flood(hand, flood, under="under"):
     return th, c, f, class_map.astype(np.uint8)
 
 
-def run_example(example_dir, cfg: PipelineConfig = PipelineConfig(), device="cpu"):
+def run_example(example_dir, cfg: PipelineConfig = PipelineConfig(), device="cuda"):
     """Full pipeline on a basin directory (the reference Example layout):
-    descriptors on ``device``, then the classification.  Returns numpy
-    descriptors plus threshold, correctness, fit and class_map."""
+    descriptors on ``device`` (the card unless the caller asks for
+    ``"cpu"``; raises where no CUDA device is available), then the
+    classification.  Returns numpy descriptors plus threshold, correctness,
+    fit and class_map."""
     from descriptools_tpu_torch.io import load_example_inputs
 
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA device is available")
     data = load_example_inputs(example_dir)
     inputs = inputs_to_torch(data["dem"], data["fdr"], data["fac"], data["river"], device)
     out = {k: v.cpu().numpy() for k, v in descriptor_suite(*inputs, cfg).items()}

@@ -79,6 +79,63 @@ def test_kernel_wrappers_refuse_wrong_dtype(dev):
     z = torch.zeros((4, 5), device=dev)
     with pytest.raises(ValueError, match="int32"):
         walk.downslope_walk(z, z, z, 5.0, 10)
+    i = torch.zeros((4, 5), dtype=torch.int32, device=dev)
+    for fn in (walk.flow_walk, walk.absorbing_walk):
+        with pytest.raises(ValueError, match="2\\^30"):
+            fn(i, i, 1 << 30)
+
+
+def _cycles(rows=96, cols=130, seed=3):
+    """Random D8 field: 2-cycles, fdr-0 cells, border exits, river cells."""
+    rng = np.random.default_rng(seed)
+    codes = np.array([1, 2, 4, 8, 16, 32, 64, 128], np.uint8)
+    fdr = codes[rng.integers(0, 8, size=(rows, cols))]
+    fdr[5, 10], fdr[5, 11] = 1, 16
+    fdr[rng.random((rows, cols)) < 0.03] = 0
+    river = (rng.random((rows, cols)) < 0.05).astype(np.int8)
+    return fdr, river
+
+
+def _serpentine(rows=200, cols=200):
+    fdr = np.zeros((rows, cols), np.uint8)
+    for r in range(rows):
+        fdr[r, :] = 1 if r % 2 == 0 else 16
+        fdr[r, -1 if r % 2 == 0 else 0] = 4
+    river = np.zeros((rows, cols), np.int8)
+    river[-1, 0] = 1
+    return fdr, river
+
+
+def _b_boundary(delta, k=4):
+    """Eastward rows of B * 2^k + 1 steps into a river column, at a cap of
+    B * 2^k + delta (B = walk.jump_bound())."""
+    bound = walk.jump_bound()
+    steps = (bound << k) + 1
+    fdr = np.ones((8, steps + 1), np.uint8)
+    river = np.zeros((8, steps + 1), np.int8)
+    river[:, -1] = 1
+    return fdr, river, (bound << k) + delta
+
+
+def test_jump_walk_kernel_matches_plain_without_a_sync(dev):
+    """The jump walk, both entry points, bitwise the plain doubling engine on
+    cycles, a serpentine over the cap and the B-boundary caps, with every
+    host synchronisation an error."""
+    cases = [(*_cycles(), 300), (*_serpentine(), 20000), (*_serpentine(), 60000),
+             *(_b_boundary(d) for d in (-1, 0, 1))]
+    for fdr, river, max_steps in cases:
+        ops = flow.walk_inputs(torch.as_tensor(fdr, device=dev), torch.as_tensor(river, device=dev))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = [fn(*ops, max_steps) for fn in (walk.flow_walk, walk.absorbing_walk)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = flow.doubling_walk(*ops, max_steps)
+        for state in got:
+            for g, w in zip(state, want):
+                assert torch.equal(g, w), (fdr.shape, max_steps)
+    assert walk.flow_walk.rounds == 5  # the least R with B << R >= the last cap, B * 2^4 + 1
 
 
 def test_stencil_padded_kernel_matches_plain(dev, basin):

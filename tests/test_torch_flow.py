@@ -9,9 +9,13 @@ Tolerances:
   atol 1e-2 on the 40000-step serpentine);
 - GFI and ln(hl/H) within rtol 2e-5 (log/pow differ by a few ulp).
 
-A numpy serial walk, the plain form of the CUDA kernel's algorithm, is held
-bitwise against the port's plain engine state (code, a, b).
+A numpy serial walk, the function the CUDA jump walk computes, is held
+bitwise against the port's plain engine state (code, a, b); a numpy model
+of the jump walk itself (bounded walk, pending list, jump rounds) is held
+bitwise against both, and its fdist and indices against the TPU kernel.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -81,16 +85,24 @@ def _port(fdr, river, max_steps):
     return fd.numpy(), idx.numpy()
 
 
-def serial_walk_state(fdr_eff, code0, max_steps):
-    """numpy form of csrc/walk.cu::absorbing_walk_kernel: every lane is one start
-    cell walking to its absorber (lanes advance together)."""
-    rows, cols = code0.shape
-    fe, c0 = fdr_eff.reshape(-1), code0.reshape(-1)
+def _d8_tables(cols):
+    """(flat move, diagonal?, valid?) of each D8 code, indexed by code."""
     move = np.zeros(256, np.int64)
     diag = np.zeros(256, bool)
+    valid = np.zeros(256, bool)
     for code, dy, dx in zip((1, 2, 4, 8, 16, 32, 64, 128),
                             (0, 1, 1, 1, 0, -1, -1, -1), (1, 1, 0, -1, -1, -1, 0, 1)):
-        move[code], diag[code] = dy * cols + dx, bool(dy and dx)
+        move[code], diag[code], valid[code] = dy * cols + dx, bool(dy and dx), True
+    return move, diag, valid
+
+
+def serial_walk_state(fdr_eff, code0, max_steps):
+    """numpy form of the serial walk (each lane one start cell walking to
+    its absorber; lanes advance together): the function the jump walk of
+    csrc/walk.cu computes."""
+    rows, cols = code0.shape
+    fe, c0 = fdr_eff.reshape(-1), code0.reshape(-1)
+    move, diag, _ = _d8_tables(cols)
     cur = np.arange(rows * cols)
     code = c0.copy()
     a = np.zeros(rows * cols, np.int32)
@@ -109,14 +121,110 @@ def serial_walk_state(fdr_eff, code0, max_steps):
     return tuple(x.reshape(rows, cols) for x in (code, a, b))
 
 
+GARBAGE = 0x5A5A5A5A  # what an output the walk never wrote holds (torch.empty)
+DONE_PENDING = (1 << 31) - 1
+WARP = 32
+
+
+def jump_walk_state(fdr_eff, code0, max_steps, B, same_round=False, epilogue=True):
+    """numpy model of csrc/walk.cu's jump walk: (code, a, b) int32.
+
+    Phase 1 walks each lane at most min(B, max_steps) steps; a lane that
+    lands or is stuck is final (done -1), one that walked B < max_steps
+    steps is pending: its state (ptr, a, b) goes to X and it joins the
+    pending list in cell order.  Then R rounds (the least R with
+    B * 2^R >= max_steps): round k runs the list in warps of 32, in order.
+    A lane whose target q was final before the round (done[q] < k) lands on
+    q's absorber if the summed steps stay within max_steps, else gives up;
+    otherwise it jumps to X[q]'s target, gives up past max_steps, or joins
+    the next list with its state in Y.  The outputs a round writes become
+    visible only when it ends (a kernel boundary); ``done`` at once.  The
+    epilogue gives up on the lanes still listed after round R - 1.
+
+    ``same_round`` lets a lane trust a final of its own round (done[q] <=
+    k); ``epilogue=False`` skips the epilogue.  Both are faults."""
+    rows, cols = code0.shape
+    n = rows * cols
+    fe, c0 = fdr_eff.reshape(-1), code0.reshape(-1).astype(np.int64)
+    move, diag, valid = _d8_tables(cols)
+    out = np.full((3, n), GARBAGE, np.int64)  # code, a, b
+    done = np.empty(n, np.int64)
+
+    # Phase 1.
+    cur, code = np.arange(n), c0.copy()
+    a, b, steps = (np.zeros(n, np.int64) for _ in range(3))
+    stuck = np.zeros(n, bool)
+    for _ in range(min(B, max_steps)):
+        lanes = np.flatnonzero((code == tflow.UNRES) & ~stuck)
+        if lanes.size == 0:
+            break
+        d = fe[cur[lanes]]
+        stuck[lanes[~valid[d]]] = True
+        lanes, d = lanes[valid[d]], d[valid[d]]
+        a[lanes] += ~diag[d]
+        b[lanes] += diag[d]
+        steps[lanes] += 1
+        cur[lanes] += move[d]
+        code[lanes] = c0[cur[lanes]]
+    pending = (code == tflow.UNRES) & ~stuck & (steps == B) & (B < max_steps)
+    final = ~pending
+    landed = final & (code != tflow.UNRES)
+    out[:, final] = np.where(landed[final], [code[final], a[final], b[final]], [[tflow.UNRES], [0], [0]])
+    done[final] = -1
+    done[pending] = DONE_PENDING
+    x = np.stack([cur, a, b])  # (ptr, a, b) of the pending lanes
+    listed = np.flatnonzero(pending)
+
+    rounds = 0
+    while (B << rounds) < max_steps:
+        rounds += 1
+    for k in range(rounds):
+        visible = out.copy()  # finals of earlier launches
+        y = x.copy()
+        nxt = []
+        for w in range(0, listed.size, WARP):
+            c = listed[w : w + WARP]
+            q = x[0, c]
+            trust = done[q] <= k if same_round else done[q] < k
+            ct, qt = c[trust], q[trust]
+            t = x[1, ct] + x[2, ct] + visible[1, qt] + visible[2, qt]
+            land = (visible[0, qt] != tflow.UNRES) & (t <= max_steps)
+            out[0, ct] = np.where(land, visible[0, qt], tflow.UNRES)
+            out[1, ct] = np.where(land, x[1, ct] + visible[1, qt], 0)
+            out[2, ct] = np.where(land, x[2, ct] + visible[2, qt], 0)
+            done[ct] = k
+            cj, qj = c[~trust], q[~trust]
+            na, nb = x[1, cj] + x[1, qj], x[2, cj] + x[2, qj]
+            over = na + nb > max_steps
+            out[:, cj[over]] = [[tflow.UNRES], [0], [0]]
+            done[cj[over]] = k
+            keep = ~over
+            y[:, cj[keep]] = [x[0, qj[keep]], na[keep], nb[keep]]
+            nxt.append(cj[keep])
+        x = y
+        listed = np.concatenate(nxt) if nxt else listed[:0]
+    if epilogue:
+        out[:, listed] = [[tflow.UNRES], [0], [0]]
+        done[listed] = rounds
+    return tuple(v.astype(np.int32).reshape(rows, cols) for v in out)
+
+
+@functools.cache
+def _pallas_vmem(case):
+    """(fdist, indices) of the TPU kernel the walk replaces, interpret mode."""
+    fdr, river, max_steps = CASES[case]()
+    wfd, widx = flow_pallas_vmem(fdr, river, PX, max_steps=max_steps, interpret=True)
+    return np.asarray(wfd), np.asarray(widx)
+
+
 @pytest.mark.parametrize("case", ["basin", "basin_capped", "lateral_channel"])
 def test_flow_bitwise_vs_pallas_vmem_kernel(case):
     fdr, river, max_steps = CASES[case]()
-    wfd, widx = flow_pallas_vmem(fdr, river, PX, max_steps=max_steps, interpret=True)
+    wfd, widx = _pallas_vmem(case)
     fd, idx = _port(fdr, river, max_steps)
     assert idx.dtype == np.int32 and fd.dtype == np.float32
-    np.testing.assert_array_equal(idx, np.asarray(widx))
-    np.testing.assert_array_equal(fd, np.asarray(wfd))
+    np.testing.assert_array_equal(idx, widx)
+    np.testing.assert_array_equal(fd, wfd)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -153,6 +261,89 @@ def test_serial_walk_reference_bitwise(fixture):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
+def _b_boundary(B, delta, k=3):
+    """Eastward rows of B * 2^k + 1 steps into a river column, at a cap of
+    B * 2^k + delta: the first cell lands only when delta > 0."""
+    steps = (B << k) + 1
+    fdr = np.ones((3, steps + 1), np.uint8)
+    river = np.zeros((3, steps + 1), np.int8)
+    river[:, -1] = 1
+    return fdr, river, (B << k) + delta
+
+
+def _north_rivers(rows=70, cols=5, spacing=23):
+    """Northward flow into a river row every ``spacing`` rows: walks of 0 to
+    spacing - 1 steps."""
+    fdr = np.full((rows, cols), 64, np.uint8)
+    river = np.zeros((rows, cols), np.int8)
+    river[::spacing] = 1
+    return fdr, river
+
+
+JUMP_FIXTURES = {
+    "basin": lambda B: CASES["basin"](),
+    "basin_capped": lambda B: CASES["basin_capped"](),
+    "cycles": lambda B: CASES["cycles"](),
+    "serpentine_500": lambda B: (*_serpentine(24, 30), 500),
+    "serpentine_719": lambda B: (*_serpentine(24, 30), 719),
+    "b_boundary-1": lambda B: _b_boundary(B, -1),
+    "b_boundary+0": lambda B: _b_boundary(B, 0),
+    "b_boundary+1": lambda B: _b_boundary(B, 1),
+    "north_rivers": lambda B: (*_north_rivers(), 400),
+}
+
+
+def _walk_operands(fdr, river):
+    fdr_eff, code0 = tflow.walk_inputs(torch.from_numpy(fdr), torch.from_numpy(river))
+    return fdr_eff, code0
+
+
+@pytest.mark.parametrize("fixture", sorted(JUMP_FIXTURES))
+@pytest.mark.parametrize("B", [1, 2, 7, 32, 64])
+def test_jump_walk_model_bitwise(B, fixture):
+    """The jump walk's model is the serial walk and the plain doubling
+    engine, bitwise (code, a, b), at every B and cap."""
+    fdr, river, max_steps = JUMP_FIXTURES[fixture](B)
+    fdr_eff, code0 = _walk_operands(fdr, river)
+    got = jump_walk_state(fdr_eff.numpy(), code0.numpy(), max_steps, B)
+    want = serial_walk_state(fdr_eff.numpy(), code0.numpy(), max_steps)
+    plain = tflow.doubling_walk(fdr_eff, code0, max_steps)
+    for g, w, p in zip(got, want, plain):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, p.numpy())
+    if fixture.startswith("b_boundary"):
+        assert (got[0][0, 0] != tflow.UNRES) == fixture.endswith("+1")
+
+
+@pytest.mark.parametrize("case", ["basin", "basin_capped", "lateral_channel"])
+@pytest.mark.parametrize("B", [1, 2, 7, 32, 64])
+def test_jump_walk_model_vs_pallas_vmem_kernel(B, case):
+    fdr, river, max_steps = CASES[case]()
+    fdr_eff, code0 = _walk_operands(fdr, river)
+    state = jump_walk_state(fdr_eff.numpy(), code0.numpy(), max_steps, B)
+    fd, idx = tflow.flow_from_state(*map(torch.from_numpy, state), PX, max_steps)
+    wfd, widx = _pallas_vmem(case)
+    np.testing.assert_array_equal(idx.numpy(), widx)
+    np.testing.assert_array_equal(fd.numpy(), wfd)
+
+
+@pytest.mark.parametrize(
+    "fault,fixture",
+    [(dict(same_round=True), lambda: CASES["lateral_channel"]()),
+     (dict(epilogue=False), lambda: _b_boundary(2, 0))],
+    ids=["trusts_a_final_of_its_own_round", "skips_the_epilogue"],
+)
+def test_jump_walk_rules_matter(fault, fixture):
+    """Each rule of the jump walk is needed: a lane that trusts a final
+    written in its own round reads a triple not yet visible, and without
+    the epilogue the lanes that reach the cap exactly are never written."""
+    fdr, river, max_steps = fixture()
+    fdr_eff, code0 = _walk_operands(fdr, river)
+    want = serial_walk_state(fdr_eff.numpy(), code0.numpy(), max_steps)
+    got = jump_walk_state(fdr_eff.numpy(), code0.numpy(), max_steps, 2, **fault)
+    assert any((g != w).any() for g, w in zip(got, want))
+
+
 @pytest.mark.parametrize("dem_dtype", [np.int32, np.int16])
 def test_hand_and_river_fac_bitwise(dem_dtype):
     dem, fdr, river, fac = synthetic_basin(70, 110, seed=13)
@@ -185,6 +376,17 @@ def test_gfi_and_ln_hl_h_vs_jax(px, n, b):
     np.testing.assert_allclose(got, np.asarray(j_gfi(hand, rfac, n, b, px)), rtol=2e-5)
     got = tgfi.ln_hl_h(torch.from_numpy(hand), torch.from_numpy(fac), n, b, px).numpy()
     np.testing.assert_allclose(got, np.asarray(j_ln_hl_h(hand, fac, n, b, px)), rtol=2e-5)
+
+
+@pytest.mark.parametrize("fn", [twalk.flow_walk, twalk.absorbing_walk], ids=lambda f: f.__name__)
+def test_jump_walk_wrappers_refuse_max_steps_past_2pow30_on_cpu(fn):
+    """The wrappers refuse a cap whose sums could overflow on any device, as
+    they do on the card."""
+    fdr_eff, code0 = _walk_operands(*_north_rivers())
+    with pytest.raises(ValueError, match="2\\^30"):
+        fn(fdr_eff, code0, 1 << 30)
+    assert all(g.equal(w) for g, w in zip(fn(fdr_eff, code0, (1 << 30) - 1),
+                                          tflow.doubling_walk(fdr_eff, code0, (1 << 30) - 1)))
 
 
 def test_flow_wrapper_on_cpu_runs_the_plain_engine():

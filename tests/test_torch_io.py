@@ -127,6 +127,17 @@ def test_cli_matches_jax(basin_dir, tmp_path, capsys):
     np.testing.assert_array_equal(tio.read_raster(out_tif), want["class_map"])
 
 
+def test_run_example_defaults_to_the_card(basin_dir):
+    """Called with no device, run_example runs on the card: without one it
+    raises instead of running on the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpipe.run_example(basin_dir[0])
+
+
 def test_cli_refuses_a_missing_card(basin_dir):
     import torch
 
