@@ -13,7 +13,8 @@ Phases, each printing its own lines:
    channel; a 40000-step serpentine, under and over the cap; 2-cell
    cycles; NaN absorbers; northward flow into a river row every 101
    rows; rows that reach the jump walk's cap at B * 2^5 - 1, + 0 and + 1
-   steps); one flow walk under
+   steps; for the fold walk, rows that reach its cap at W * 5 - 1, + 0 and
+   + 1 steps, the edges of its bands); one flow walk under
    ``torch.cuda.set_sync_debug_mode("error")``; the tiled path's kernels
    on tile operands (basin windows and tiles, a lateral channel cut into
    tiles, a flat eastward walk and a ramp cut by a window edge);
@@ -25,7 +26,10 @@ Phases, each printing its own lines:
    walk on the basin, the north rivers (walks of 0 to 100 steps), the
    lateral channel and the serpentine: its time (CUDA events), its phase 1
    and rounds apart (device time by kernel from torch.profiler), R and the
-   cells entering each round;
+   cells entering each round; the fold walk (K7) on the same four: its
+   time, K (its rounds), P (the cells folded in rounds) and its device time
+   by step (the jump walk, the fold start, the sort, the rounds, the host
+   read);
 4. the out-of-core path: ``tiled_suite`` at 8192x8192 in 4096x4096 tiles
    through the tile kernels, held against the in-core suite of the same
    grid; a forced truncation retry; ``tiled_classify_flood`` against
@@ -37,8 +41,9 @@ Phases, each printing its own lines:
    ``run_suite_checkpointed(engine="cuda_blocked")`` at 8192x8192 (phase
    4's in-core inputs), killed inside its flow stage and resumed, held
    bitwise against an uninterrupted ``descriptor_suite`` of the same grid,
-   with stage seconds, checkpoint bytes and peak device memory; the fold
-   kernel against its plain version there, checked and timed.
+   with stage seconds, checkpoint bytes and peak device memory (and the
+   in-core ``cuda_blocked`` suite's peak); the fold kernel against its
+   plain version there, checked and timed, with its device time by step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises, so
@@ -147,12 +152,12 @@ def check_close(label, got, want):
     return max_abs_err(got, want)
 
 
-def median_ms(fn):
-    """Median of REPEATS timed runs (CUDA events), after one warm-up run."""
+def median_ms(fn, repeats=REPEATS):
+    """Median of ``repeats`` timed runs (CUDA events), after one warm-up run."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -176,10 +181,13 @@ def timed(inputs, fn, plain, ops_per_cell=0):
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
-def device_ms(fn, names):
-    """Device time per call of ``fn`` (torch.profiler, REPEATS calls after
-    one warm-up), summed over the kernels whose name holds each of
-    ``names``: {name: ms}, None where the trace shows no device time."""
+def device_ms(fn, launches):
+    """Device time of one call of ``fn`` by kernel (torch.profiler, REPEATS
+    calls after one warm-up).  ``launches`` maps a fragment of a kernel's
+    name to its launches per call; each gets the mean time of the launches
+    the trace holds times that number, since a trace can miss records (most
+    at the start of a session).  Returns ({name: ms, None where the trace
+    holds none}, launches held, launches made)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -188,13 +196,15 @@ def device_ms(fn, names):
         for _ in range(REPEATS):
             fn()
         torch.cuda.synchronize()
-    found = dict.fromkeys(names, 0.0)
+    found = {name: [0.0, 0] for name in launches}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        for name in names:
-            if name in ev.key:
-                found[name] += us / 1e3 / REPEATS
-    return {k: (v or None) for k, v in found.items()}
+        for name in launches:
+            if name in ev.key and us:
+                found[name][0] += us
+                found[name][1] += ev.count
+    ms = {k: us / n / 1e3 * launches[k] if n else None for k, (us, n) in found.items()}
+    return ms, sum(n for _, n in found.values()), REPEATS * sum(launches.values())
 
 
 def jump_profile(cases, card):
@@ -221,10 +231,63 @@ def jump_profile(cases, card):
               f"{pending[:-1]} ({pending[0]} pending after phase 1); walk steps mean "
               f"{float(steps.float().mean()):.3f}, max {int(steps.max())}; kernel {whole:.3f} ms, "
               f"plain doubling_walk {plain_ms:.3f} ms  [{card}]")
-        dev_ms = device_ms(lambda: walk.flow_walk(*ops, cap), ("Memset", "jump_start", "jump_round"))
+        dev_ms, held, made = device_ms(lambda: walk.flow_walk(*ops, cap),
+                                       {"Memset (Device)": 1, "jump_start": 1, "jump_round": rounds})
         shown = {k: "not measured" if v is None else f"{v:.4f} ms" for k, v in dev_ms.items()}
-        print(f"jump device time {label} (torch.profiler, per call): memset {shown['Memset']}, "
-              f"phase 1 {shown['jump_start']}, {rounds} rounds {shown['jump_round']}  [{card}]")
+        print(f"jump device time {label} (torch.profiler, per call; the trace held {held} of {made} "
+              f"launches): memset {shown['Memset (Device)']}, phase 1 {shown['jump_start']}, {rounds} rounds "
+              f"{shown['jump_round']}  [{card}]")
+
+
+FOLD_STEPS = {  # the fold walk's steps, by kernel-name fragment
+    "Memset (Device)": "memsets", "jump_start": "jump walk phase 1", "jump_round": "jump walk rounds",
+    "fold_start": "fold start", "band_histogram": "sort: histogram", "band_scan": "scan",
+    "band_scatter": "scatter", "fold_round": "rounds", "Memcpy DtoH": "host read",
+}
+
+
+def fold_split(label, fn, card):
+    """Device time of one ``flow_walk_blocked`` call ``fn`` by step
+    (torch.profiler), printed with K and P (``fn`` gives the same every
+    call)."""
+    from descriptools_tpu_torch.ops.cuda import walk
+
+    fn()
+    fb = walk.flow_walk_blocked
+    sort = 1 if fb.pending else 0
+    launches = {"Memset (Device)": 2, "jump_start": 1, "jump_round": fb.jump_rounds, "fold_start": 1,
+                "band_histogram": sort, "band_scan": sort, "band_scatter": sort, "fold_round": fb.rounds,
+                "Memcpy DtoH": 1}
+    dev_ms, held, made = device_ms(fn, {k: n for k, n in launches.items() if n})
+    shown = ", ".join(
+        f"{step} " + ("not launched" if not launches[name]
+                      else "not measured" if dev_ms[name] is None else f"{dev_ms[name]:.4f} ms")
+        for name, step in FOLD_STEPS.items()
+    )
+    print(f"fold device time {label} (torch.profiler, per call; K {fb.rounds}, P {fb.pending}; the trace "
+          f"held {held} of {made} launches): {shown}  [{card}]")
+
+
+def fold_profile(cases, card):
+    """The fold walk (``flow_walk_blocked``, held bitwise against
+    ``fold_walk`` in phase 1) on each case: its time (CUDA events) beside
+    the plain version's (``plain_repeats`` runs), K, P, the jump walk's R
+    and the device time by step."""
+    from descriptools_tpu_torch.ops import flow
+    from descriptools_tpu_torch.ops.cuda import walk
+
+    consts = flow.step_consts(12.5)
+    for label, (ops, cap, plain_repeats) in cases.items():
+        def fn():
+            return walk.flow_walk_blocked(*ops, *consts, cap)
+
+        whole = median_ms(fn)
+        fb = walk.flow_walk_blocked
+        plain_ms = median_ms(lambda: flow.fold_walk(*ops, *consts, cap), plain_repeats)
+        print(f"time flow_walk_blocked {label}: kernel {whole:.3f} ms, plain fold_walk {plain_ms:.3f} ms "
+              f"(median of {plain_repeats}); K {fb.rounds}, P {fb.pending}, jump walk R {fb.jump_rounds}  "
+              f"[{card}]")
+        fold_split(label, fn, card)
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +373,18 @@ def b_boundary(bound, k, delta, rows=64):
     river = np.zeros((rows, steps + 1), np.int8)
     river[:, -1] = 1
     return fdr, river, (bound << k) + delta
+
+
+def band_edge(width, k, delta, rows=64):
+    """Eastward rows into a river column whose longest walks are width * k
+    + 1, width * k and width * k - 1 steps (behind 0, 1 and 2 NaN
+    absorbers), at a cap of width * k + delta: the fold's band edges."""
+    fdr = np.ones((rows, width * k + 2), np.uint8)
+    fdr[1::3, :1] = 0
+    fdr[2::3, :2] = 0
+    river = np.zeros(fdr.shape, np.int8)
+    river[:, -1] = 1
+    return fdr, river, width * k + delta
 
 
 def nan_absorbers(rows=1000, cols=1200, seed=5):
@@ -405,7 +480,7 @@ def phase_kernels(dev, basin, errs):
         fdr_eff, code0 = flow.walk_inputs(torch.as_tensor(fdr, device=dev), torch.as_tensor(river, device=dev))
         consts = flow.step_consts(12.5)
         got = walk.flow_walk_blocked(fdr_eff, code0, *consts, max_steps)
-        rounds = walk.flow_walk_blocked.rounds
+        rounds, pending = walk.flow_walk_blocked.rounds, walk.flow_walk_blocked.pending
         want = flow.fold_walk(fdr_eff, code0, *consts, max_steps)
         e = 0.0
         for name, g, w in zip(("code", "dist"), got, want):
@@ -413,13 +488,20 @@ def phase_kernels(dev, basin, errs):
         fd, idx = flow.flow_from_fold(*got)
         for name, g, w in zip(("fdist", "indices"), (fd, idx), flow.flow_from_fold(*want)):
             e = max(e, check_bitwise(f"fold/{label}/{name}", g, w))
-        counts = flow.flow_from_state(*walk.flow_walk(fdr_eff, code0, max_steps), 12.5, max_steps)
+        state = walk.flow_walk(fdr_eff, code0, max_steps)
+        counts = flow.flow_from_state(*state, 12.5, max_steps)
         check_bitwise(f"fold/{label}/indices vs flow_walk", idx, counts[1])
+        # P and K follow from the depths.
+        depth, width = state[1] + state[2], walk.fold_width()
+        if pending != int((depth > width).sum()) or rounds != max(int(depth.max()) - 1, 0) // width:
+            raise AssertionError(f"fold/{label}: K {rounds}, P {pending} disagree with the depths")
+        start_steps = int(torch.where(depth > 0, (depth - 1) % width + 1, 0).sum())  # the fold start's
         errs["flow_walk_blocked"] = max(errs["flow_walk_blocked"], e)
         landed = int((idx != -100).sum())
         print(f"kernel flow_walk_blocked {label:<30} matches plain bitwise (code, dist, fdist, indices; "
-              f"indices = flow_walk's); {rounds} launches, {landed} of {idx.numel()} landed, "
-              f"fdist differs from counts on {int((fd != counts[0]).sum())} cells")
+              f"indices = flow_walk's); K {rounds} rounds, P {pending} pending, {start_steps} fold-start "
+              f"steps, {landed} of {idx.numel()} landed, fdist differs from counts on "
+              f"{int((fd != counts[0]).sum())} cells")
 
     stencil_case(f"basin {ROWS}x{COLS}", basin["dem"], basin["fac"])
     downslope_case(f"basin {ROWS}x{COLS}", basin["dem"], basin["fdr"], 5.0, 5000)
@@ -453,10 +535,14 @@ def phase_kernels(dev, basin, errs):
           f"no host synchronisation, matches plain bitwise")
     fold_case(f"basin {ROWS}x{COLS}", basin["fdr"], basin["river"], 20000)
     fold_case(f"lateral channel {ROWS}x{COLS}", *lateral_channel(ROWS, COLS), 20000)
+    fold_case(f"north rivers {ROWS}x{COLS}", *north_rivers(ROWS, COLS), 20000)
     fold_case("serpentine 200x200, cap 60000", *serpentine(), 60000)
     fold_case("serpentine 200x200, cap 20000", *serpentine(), 20000)
     fold_case("2-cell cycles 512x640", *two_cell_cycles(), 20000)
     fold_case("NaN absorbers 1000x1200", *nan_absorbers(), 20000)
+    for delta in (-1, 0, 1):
+        fdr, river, cap = band_edge(walk.fold_width(), 5, delta)
+        fold_case(f"band-edge rows, cap {cap}", fdr, river, cap)
     torch.cuda.synchronize()
 
 
@@ -564,15 +650,10 @@ def phase_timing(dev, inputs, card):
             median_ms(lambda: down.jacobi_walk(*dn, 50.0, 5000)),
         ),
     }
-    consts = flow.step_consts(12.5)
-    fold = {
-        "flow_walk_blocked, basin": f_ops,
-        f"flow_walk_blocked, lateral channel (walks of up to {ROWS + COLS - 2} steps)": fl,
-    }
-    for name, ops in fold.items():
-        ms = median_ms(lambda: walk.flow_walk_blocked(*ops, *consts, 20000))
-        long_walks[f"{name} ({walk.flow_walk_blocked.rounds} launches)"] = (
-            ms, median_ms(lambda: flow.fold_walk(*ops, *consts, 20000)))
+    # fold_walk sweeps 40000 times on the serpentine, a host read each: its
+    # plain time there is one run.
+    fold_profile({label: (ops, cap, 1 if cap > 20000 else REPEATS)
+                  for label, (ops, cap) in jump_cases.items()}, card)
     for name, (ms, plain_ms) in long_walks.items():
         print(f"time {name} {ROWS}x{COLS}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
     suite_ms = median_ms(lambda: pipeline.descriptor_suite(*inputs, pipeline.PipelineConfig()))
@@ -882,6 +963,12 @@ def phase_checkpointed(dev, card, basin, full, errs):
     del small, out, plain, counts
 
     inputs = pipeline.inputs_to_torch(full["dem"], full["fdr"], full["fac"], full["river"], dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pipeline.descriptor_suite(*inputs, blocked)
+    torch.cuda.synchronize()
+    print(f"in-core cuda_blocked suite {BIG}x{BIG}: peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB  [{card}]")
     real_flow, real_stencil, real_down = (
         pipeline._engine_flow, pipeline._engine_stencil, pipeline._engine_downslope)
 
@@ -950,12 +1037,15 @@ def phase_checkpointed(dev, card, basin, full, errs):
                           flow.fold_walk(*ops, *consts, 20000)):
         e = max(e, check_bitwise(f"fold {BIG}x{BIG}/{name}", g, w))
     errs["flow_walk_blocked"] = max(errs["flow_walk_blocked"], e)
-    t = timed(ops, lambda: walk.flow_walk_blocked(*ops, *consts, 20000),
-              lambda: flow.fold_walk(*ops, *consts, 20000))
-    rounds = walk.flow_walk_blocked.rounds
-    print(f"time flow_walk_blocked {BIG}x{BIG} ({rounds} launches): kernel {t['ms']:.3f} ms, "
-          f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
-          f"matches plain bitwise (code, dist)  [{card}]")
+    def fold_big():
+        return walk.flow_walk_blocked(*ops, *consts, 20000)
+
+    t = timed(ops, fold_big, lambda: flow.fold_walk(*ops, *consts, 20000))
+    fb = walk.flow_walk_blocked
+    print(f"time flow_walk_blocked {BIG}x{BIG} (K {fb.rounds}, P {fb.pending}, jump walk R {fb.jump_rounds}): "
+          f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}); matches plain bitwise (code, dist)  [{card}]")
+    fold_split(f"{BIG}x{BIG}", fold_big, card)
     del ops, inputs
     torch.cuda.empty_cache()
     return launches, {"flow_walk_blocked": t}

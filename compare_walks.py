@@ -15,9 +15,13 @@ generators), the same in every process.  Each process times, on one card:
   and on the lateral channel (walks of up to 3710 steps);
 - ``absorbing_walk`` (K5/K8) on tile (0, 0) of the tiled phase's 8192x8192
   grid in 4096x4096 tiles;
-- ``descriptor_suite`` on the synthetic basin, default configuration;
+- ``flow_walk_blocked`` (K7) at 2178x1534, cap 20000, on the basin, the
+  north rivers and the lateral channel;
+- ``descriptor_suite`` on the synthetic basin, default configuration and
+  ``engine="cuda_blocked"`` (with the latter's peak device memory);
 
-each walk held bitwise against ``doubling_walk``, each time the median of
+each count walk held bitwise against ``doubling_walk`` and each fold walk
+against ``fold_walk``, each time the median of
 20 CUDA-event runs after a warm-up.  Every process prints its numbers; the
 last line is one JSON object with all of them and the card's name and
 power limit.
@@ -87,11 +91,28 @@ def one(tree):
         for name, g, w in zip(("code", "a", "b"), fn(*ops, 20000), flow.doubling_walk(*ops, 20000)):
             cs.check_bitwise(f"{label}/{name}", g, w)
         ms[label] = median_ms(torch, lambda: fn(*ops, 20000))
+    consts = flow.step_consts(12.5)
+    for label in ("basin", "north rivers", "lateral channel"):
+        ops = cases[f"flow_walk {label}"][1]
+        for name, g, w in zip(("code", "dist"), walk.flow_walk_blocked(*ops, *consts, 20000),
+                              flow.fold_walk(*ops, *consts, 20000)):
+            cs.check_bitwise(f"flow_walk_blocked {label}/{name}", g, w)
+        ms[f"flow_walk_blocked {label}"] = median_ms(
+            torch, lambda: walk.flow_walk_blocked(*ops, *consts, 20000))
     cfg = pipeline.PipelineConfig()
     ms["descriptor_suite basin"] = median_ms(torch, lambda: pipeline.descriptor_suite(*inputs, cfg))
+    blocked = pipeline.PipelineConfig(engine="cuda_blocked")
+    ms["descriptor_suite cuda_blocked basin"] = median_ms(
+        torch, lambda: pipeline.descriptor_suite(*inputs, blocked))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pipeline.descriptor_suite(*inputs, blocked)
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
     # B of a tree with the jump walk; None for one with the serial walk.
     bound = walk.jump_bound() if hasattr(walk, "jump_bound") else None
-    print(json.dumps({"tree": tree, "package": package, "B": bound, "ms": ms}))
+    print(json.dumps({"tree": tree, "package": package, "B": bound, "ms": ms,
+                      "cuda_blocked_suite_peak_MiB": peak_mib}))
 
 
 def main(trees):
@@ -106,7 +127,8 @@ def main(trees):
             raise SystemExit(f"compare_walks: {tree} failed ({out.returncode})")
         run = json.loads(out.stdout.strip().splitlines()[-1])
         runs.append(run)
-        print(f"{tree} (B {run['B']}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in run["ms"].items()))
+        print(f"{tree} (B {run['B']}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in run["ms"].items())
+              + f"; cuda_blocked suite peak {run['cuda_blocked_suite_peak_MiB']:.3f} MiB")
     card = cs.card_line()
     print(card)
     print(json.dumps({"card": card, "repeats": REPEATS, "runs": runs}))

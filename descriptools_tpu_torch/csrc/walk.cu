@@ -73,6 +73,7 @@
 #include <cuda_runtime.h>
 
 #include "d8.cuh"
+#include "grid.cuh"
 
 namespace {
 
@@ -251,25 +252,10 @@ int jump_rounds(int max_steps) {
   return r;
 }
 
-// Blocks of a persistent round grid: as many as the card's SMs hold at
-// once, computed once per device.
+// Blocks of a persistent round grid, computed once per device.
 int round_blocks(int& blocks) {
   static int cached[64] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (device < 64 && cached[device] > 0) {
-    blocks = cached[device];
-    return 0;
-  }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, jump_round_kernel, kThreads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  blocks = sms * (per_sm > 0 ? per_sm : 1);
-  if (device < 64) cached[device] = blocks;
-  return 0;
+  return persistent_blocks(jump_round_kernel, kThreads, cached, blocks);
 }
 
 }  // namespace

@@ -55,11 +55,14 @@ SIGNATURES = {
         _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _I, ctypes.POINTER(_I), _VP,
     ],
     "jump_walk_bound": [],
-    # fdr_eff, code0, code, dist, code_b, dist_b, flags, n_flags, rows, cols,
-    # c_card, c_diag, max_steps, launches (int*, host), stream
+    # the anchored fold: fdr_eff, code0, code, dist, a, b, jump_counts,
+    # n_jump_counts, scratch, bands, n_bands, rows, cols, c_card, c_diag,
+    # max_steps, info (int[3], host: R, P, K), stream
     "launch_flow_walk_blocked": [
-        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _I, ctypes.POINTER(_I), _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _F, _F, _I,
+        ctypes.POINTER(_I), _VP,
     ],
+    "fold_band_width": [],
 }
 
 

@@ -26,7 +26,10 @@ Wrappers of ``csrc/walk.cu``:
 - :func:`flow_walk_blocked` (``csrc/flow_fold.cu``) replaces
   ``walk.py::_flow_kernel``, the JAX blocked flow tier; its plain version
   is ``ops.flow.fold_walk``.  It forms fdist as the right fold of the step
-  lengths, as that tier does, where :func:`flow_walk` gives counts.
+  lengths, as that tier does, where :func:`flow_walk` gives counts: an
+  anchored fold after the jump walk, each cell folding at most W steps
+  onto an anchor that an earlier launch finished, with one host read per
+  call.
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 the plain version.  There is no other fallback.  The operands are built and
@@ -116,10 +119,9 @@ def _check_jump_max_steps(max_steps):
         raise ValueError(f"max_steps {max_steps} >= 2^30 would overflow the step counts")
 
 
-def _jump_walk(counted, fdr_eff, code0, max_steps):
-    """The jump walk: (code, a, b) int32.  Sets ``counted.rounds`` (R) and
-    ``counted.pending`` (a device tensor: ``pending[k]`` cells entered
-    round k)."""
+def _jump_buffers(fdr_eff, code0):
+    """Checked operands' outputs and scratch of the jump walk: (code, a, b,
+    counts, scratch)."""
     shape = tuple(code0.shape)
     build.check_cuda_tensor(fdr_eff, "fdr_eff", torch.int32, shape)
     build.check_cuda_tensor(code0, "code0", torch.int32, shape)
@@ -128,6 +130,16 @@ def _jump_walk(counted, fdr_eff, code0, max_steps):
     counts = torch.empty(_JUMP_COUNTS, dtype=torch.int32, device=dev)  # zeroed by the launcher
     # Two int2 state buffers, done and two lists: 28 B a cell.
     scratch = torch.empty(7 * code0.numel(), dtype=torch.int32, device=dev)
+    return code, a, b, counts, scratch
+
+
+def _jump_walk(counted, fdr_eff, code0, max_steps):
+    """The jump walk: (code, a, b) int32.  Sets ``counted.rounds`` (R) and
+    ``counted.pending`` (a device tensor: ``pending[k]`` cells entered
+    round k)."""
+    shape = tuple(code0.shape)
+    dev = code0.device
+    code, a, b, counts, scratch = _jump_buffers(fdr_eff, code0)
     rounds = ctypes.c_int(0)
     with torch.cuda.device(dev):
         build.launch(
@@ -184,7 +196,10 @@ def flow_cuda(fdr, river, px, max_steps):
     return _flow.flow_from_state(code, a, b, px, max_steps)
 
 
-FOLD_TILE = 64  # interior side of a flow_fold.cu block (kTile)
+def fold_width():
+    """W, the depths of one band of the anchored fold (``csrc/flow_fold.cu``
+    kFoldW)."""
+    return build.library().fold_band_width()
 
 
 def flow_walk_blocked(fdr_eff, code0, c_card, c_diag, max_steps):
@@ -192,35 +207,44 @@ def flow_walk_blocked(fdr_eff, code0, c_card, c_diag, max_steps):
     right fold of the step lengths ``c_card`` / ``c_diag`` along the path;
     (UNRES, 0) where no absorber is reached within ``max_steps``.
 
-    The kernel is launched once per 16 sweeps until a launch resolves
-    nothing; ``flow_walk_blocked.rounds`` holds the number of launches of
-    the last call."""
+    The anchored fold: the jump walk gives every cell's code and depth t;
+    each cell folds its first ((t - 1) mod W) + 1 steps onto the anchor
+    they reach, at a depth that is a multiple of W; after one host read,
+    the cells deeper than W are folded in K rounds, band by band of W
+    depths, each onto an anchor an earlier launch finished.  Sets, for the
+    last call, ``flow_walk_blocked.rounds`` (K), ``.pending`` (the cells
+    folded in rounds) and ``.jump_rounds`` (the jump walk's R).  Refuses
+    ``max_steps >= 2^30`` on any device, as the jump walk does."""
+    _check_jump_max_steps(max_steps)
     if not code0.is_cuda:
         return _flow.fold_walk(fdr_eff, code0, c_card, c_diag, max_steps)
     shape = tuple(code0.shape)
-    build.check_cuda_tensor(fdr_eff, "fdr_eff", torch.int32, shape)
-    build.check_cuda_tensor(code0, "code0", torch.int32, shape)
-    code, code_b = torch.empty_like(code0), torch.empty_like(code0)
-    dist = torch.empty(shape, dtype=torch.float32, device=code0.device)
-    dist_b = torch.empty_like(dist)
-    blocks = -(-shape[0] // FOLD_TILE) * -(-shape[1] // FOLD_TILE)
-    flags = torch.empty(2 * blocks + 1, dtype=torch.int32, device=code0.device)
-    rounds = ctypes.c_int(0)
-    with torch.cuda.device(code0.device):
+    dev = code0.device
+    # a and b are scratch here; the fold reuses the jump walk's scratch.
+    code, a, b, counts, scratch = _jump_buffers(fdr_eff, code0)
+    dist = torch.empty(shape, dtype=torch.float32, device=dev)
+    # [P, K], a histogram (then cursors) and offsets over the bands a depth
+    # within the cap can reach.
+    k_cap = max(min(int(max_steps), code0.numel()) - 1, 0) // fold_width()
+    bands = torch.empty(3 + 2 * k_cap, dtype=torch.int32, device=dev)
+    info = (ctypes.c_int * 3)()
+    with torch.cuda.device(dev):
         build.launch(
             "launch_flow_walk_blocked",
             fdr_eff.data_ptr(), code0.data_ptr(), code.data_ptr(), dist.data_ptr(),
-            code_b.data_ptr(), dist_b.data_ptr(), flags.data_ptr(), flags.numel(),
-            shape[0], shape[1], float(np.float32(c_card)), float(np.float32(c_diag)),
-            int(max_steps), ctypes.byref(rounds), build.stream_handle(code0.device),
+            a.data_ptr(), b.data_ptr(), counts.data_ptr(), counts.numel(), scratch.data_ptr(),
+            bands.data_ptr(), bands.numel(), shape[0], shape[1], float(np.float32(c_card)),
+            float(np.float32(c_diag)), int(max_steps), info, build.stream_handle(dev),
         )
     flow_walk_blocked.launches += 1
-    flow_walk_blocked.rounds = rounds.value
+    flow_walk_blocked.jump_rounds, flow_walk_blocked.pending, flow_walk_blocked.rounds = info
     return code, dist
 
 
 flow_walk_blocked.launches = 0
 flow_walk_blocked.rounds = 0
+flow_walk_blocked.pending = 0
+flow_walk_blocked.jump_rounds = 0
 
 
 def flow_blocked_cuda(fdr, river, px, max_steps):

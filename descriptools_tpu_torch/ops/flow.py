@@ -24,8 +24,9 @@ successor resolves, so fdist is the right fold ``stepd[c0] + (stepd[c1] +
 (... + 0))`` of the f32 step lengths along the path, not a product of
 counts.  The two orders differ in the last ulps on long paths.
 :func:`fold_walk` is the plain engine; ``ops.cuda.walk.flow_walk_blocked``
-runs the same sweeps in shared-memory tiles; :func:`flow_from_fold`
-finishes either.
+forms the same fold as an anchored fold (the jump walk's depths, then
+each cell's first steps folded onto an already final anchor, band by
+band); :func:`flow_from_fold` finishes either.
 """
 
 import numpy as np

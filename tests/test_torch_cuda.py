@@ -198,7 +198,19 @@ def test_flow_walk_blocked_kernel_matches_fold_walk(dev, basin):
         river[0, -1] = 1
         return fdr, river
 
-    cases = [(basin["fdr"], basin["river"], 20000), (*lateral(150, 170), 20000), (*lateral(150, 170), 37)]
+    def band_edge(width, k, rows=6):
+        """Eastward rows whose longest walks are width*k + 1, width*k and
+        width*k - 1 steps (behind 0, 1 and 2 NaN absorbers)."""
+        fdr = np.ones((rows, width * k + 2), np.uint8)
+        fdr[1::3, :1] = 0
+        fdr[2::3, :2] = 0
+        river = np.zeros(fdr.shape, np.int8)
+        river[:, -1] = 1
+        return fdr, river
+
+    width = walk.fold_width()
+    cases = [(basin["fdr"], basin["river"], 20000), (*lateral(150, 170), 20000), (*lateral(150, 170), 37),
+             *((*band_edge(width, 3), width * 3 + d) for d in (-1, 0, 1))]
     for fdr, river, max_steps in cases:
         ops = flow.walk_inputs(torch.as_tensor(fdr, device=dev), torch.as_tensor(river, device=dev))
         consts = flow.step_consts(12.5)
@@ -206,8 +218,13 @@ def test_flow_walk_blocked_kernel_matches_fold_walk(dev, basin):
         want = flow.fold_walk(*ops, *consts, max_steps)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-        idx = flow.flow_from_state(*walk.flow_walk(*ops, max_steps), 12.5, max_steps)[1]
+        state = walk.flow_walk(*ops, max_steps)
+        idx = flow.flow_from_state(*state, 12.5, max_steps)[1]
         assert torch.equal(flow.flow_from_fold(*got)[1], idx)
+        # P and K follow from the depths.
+        depth = state[1] + state[2]
+        assert walk.flow_walk_blocked.pending == int((depth > width).sum())
+        assert walk.flow_walk_blocked.rounds == max(int(depth.max()) - 1, 0) // width
 
 
 def test_checkpointed_cuda_blocked_matches_the_fused_suite(dev, basin, tmp_path):

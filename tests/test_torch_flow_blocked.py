@@ -6,8 +6,10 @@ Tolerances:
   lengths from the river back up each path; the count engine
   (``engine="torch"``) gives another summation order and differs;
 - indices bitwise the count engine's (K4's) on every fixture;
-- a numpy form of ``csrc/flow_fold.cu``'s blocks, launches and skips is
-  bitwise ``fold_walk`` (code and dist);
+- a numpy model of ``csrc/flow_fold.cu``'s anchored fold (the jump
+  walk's depths, the fold start, the counting sort by band, rounds whose
+  writes show at their end) is bitwise ``fold_walk`` (code and dist) at
+  band widths 1, 2, 7 and 64, and at band edges bitwise ``flow_pallas``;
 - the whole suite with ``engine="torch_blocked"`` against JAX's
   ``descriptor_suite(engine="pallas")`` on its blocked tier
   (``walk_vmem.fits_vmem`` patched to False, Pallas in interpret mode):
@@ -117,90 +119,174 @@ def test_fold_walk_bitwise_vs_flow_pallas(name, max_steps):
         assert int((idx == -100).sum()) > 20  # the cells upstream of the pairs
 
 
-def blocked_fold_state(fdr_eff, code0, c_card, c_diag, max_steps, tile, halo):
-    """numpy form of csrc/flow_fold.cu: tile x tile blocks with a halo-cell
-    window, ping-pong state buffers, up to ``halo`` synchronous sweeps per
-    launch with the early stop, and the 3x3 neighbourhood activity skip.
-    The second buffer starts as garbage, so a block that should have
-    written and did not shows.  Returns (code, dist, launches)."""
+def _band_edge(w, k, rows=6):
+    """Eastward rows into a river column (the last): the rows' longest walks
+    are w*k + 1, w*k and w*k - 1 steps (rows 1 and 2 of each three start
+    behind one and two NaN absorbers, fdr 0)."""
+    longest = w * k + 1
+    fdr = np.ones((rows, longest + 1), np.uint8)
+    fdr[1::3, :1] = 0
+    fdr[2::3, :2] = 0
+    river = np.zeros((rows, longest + 1), np.int8)
+    river[:, -1] = 1
+    return fdr, river
+
+
+def _d8_tables(cols):
+    """(flat move, diagonal?) of each D8 code, indexed by code."""
+    move = np.zeros(256, np.int64)
+    diag = np.zeros(256, bool)
+    for code, dy, dx in zip((1, 2, 4, 8, 16, 32, 64, 128),
+                            (0, 1, 1, 1, 0, -1, -1, -1), (1, 1, 0, -1, -1, -1, 0, 1)):
+        move[code], diag[code] = dy * cols + dx, bool(dy and dx)
+    return move, diag
+
+
+def _fold_bits(bits, m, acc, c_card, c_diag):
+    """For j = m - 1 down to 0: acc = (bit j of bits ? c_diag : c_card) +
+    acc, in f32, lane by lane."""
+    acc = acc.astype(np.float32)
+    for j in range(int(m.max(initial=0)) - 1, -1, -1):
+        on = j < m
+        kind = ((bits[on] >> np.uint64(j)) & np.uint64(1)).astype(bool)
+        acc[on] = np.where(kind, c_diag, c_card) + acc[on]
+    return acc
+
+
+def anchored_fold_state(fdr_eff, code0, c_card, c_diag, max_steps, w, sort=True):
+    """numpy model of csrc/flow_fold.cu's anchored fold: (code, dist, P, K).
+
+    The jump walk's (code, a, b) come from ``doubling_walk`` (bitwise the
+    same).  Fold start, from (code, t = a + b) alone: an absorber (t = 0)
+    keeps (code0, 0), a cell the walk left UNRES gets (UNRES, 0); any other
+    cell walks m = ((t - 1) mod w) + 1 steps, recording their kinds in a uint64, to its anchor q.
+    At t <= w dist is the fold onto 0; otherwise the cell joins the pending
+    list (P cells) in band (t - 1) // w, K being the largest.  A counting
+    sort orders the list by band: histogram, exclusive scan, scatter through
+    cursors.  Round k folds band k's segment onto dist[q]; its writes show
+    only when it ends (a kernel boundary), and every anchor it reads must
+    have been written by an earlier round (the fold start is round 0).  A
+    pending cell holds NaN until its round, so a missed write shows.
+    ``sort=False`` folds the whole list in one round: a fault the anchor
+    assertion must catch."""
     rows, cols = code0.shape
-    nby, nbx = -(-rows // tile), -(-cols // tile)
-    win = tile + 2 * halo
-    step = {1: (0, 1), 2: (1, 1), 4: (1, 0), 8: (1, -1),
-            16: (0, -1), 32: (-1, -1), 64: (-1, 0), 128: (-1, 1)}
-    codes = [code0.copy(), np.full_like(code0, 12345)]
-    dists = [np.zeros(code0.shape, np.float32), np.full(code0.shape, np.nan, np.float32)]
-    changed = [np.zeros((nby, nbx), bool), np.zeros((nby, nbx), bool)]
-    count, t0 = 0, 0
-    while t0 < max_steps:
-        src, dst = count % 2, 1 - count % 2
-        n_changed = 0
-        for by in range(nby):
-            for bx in range(nbx):
-                near = changed[src][max(by - 1, 0):by + 2, max(bx - 1, 0):bx + 2]
-                if count > 0 and not near.any():
-                    changed[dst][by, bx] = False
-                    continue
-                r0, c0 = by * tile - halo, bx * tile - halo
-                code = np.full((win, win), -1, np.int32)
-                dist = np.zeros((win, win), np.float32)
-                nxt = np.full((win, win), -1, np.int64)
-                stepd = np.zeros((win, win), np.float32)
-                for wr in range(win):
-                    for wc in range(win):
-                        r, c = r0 + wr, c0 + wc
-                        if not (0 <= r < rows and 0 <= c < cols):
-                            continue
-                        code[wr, wc], dist[wr, wc] = codes[src][r, c], dists[src][r, c]
-                        d = int(fdr_eff[r, c])
-                        if d in step:
-                            nr, nc = wr + step[d][0], wc + step[d][1]
-                            if 0 <= nr < win and 0 <= nc < win:
-                                nxt[wr, wc] = nr * win + nc
-                                stepd[wr, wc] = c_diag if step[d][0] and step[d][1] else c_card
-                interior = np.zeros((win, win), bool)
-                interior[halo:halo + tile, halo:halo + tile] = True
-                hit_interior = False
-                code, dist, nxt, stepd, interior = (a.reshape(-1) for a in (code, dist, nxt, stepd, interior))
-                for k in range(halo):
-                    if t0 + k >= max_steps:
-                        break
-                    hits = (code == tflow.UNRES) & (nxt >= 0)
-                    hits[hits] = code[nxt[hits]] != tflow.UNRES
-                    dist[hits] = stepd[hits] + dist[nxt[hits]]
-                    code[hits] = code[nxt[hits]]
-                    hit_interior |= bool((hits & interior).any())
-                    if not hits.any():
-                        break
-                code, dist = code.reshape(win, win), dist.reshape(win, win)
-                ye, xe = min((by + 1) * tile, rows), min((bx + 1) * tile, cols)
-                inner = np.s_[halo:halo + ye - by * tile, halo:halo + xe - bx * tile]
-                codes[dst][by * tile:ye, bx * tile:xe] = code[inner]
-                dists[dst][by * tile:ye, bx * tile:xe] = dist[inner]
-                changed[dst][by, bx] = hit_interior
-                n_changed += hit_interior
-        count += 1
-        t0 += halo
-        if n_changed == 0:
-            break
-    return codes[count % 2], dists[count % 2], count
+    code, a, b = (x.numpy().reshape(-1) for x in tflow.doubling_walk(
+        torch.from_numpy(fdr_eff), torch.from_numpy(code0), max_steps))
+    fe, c0 = fdr_eff.reshape(-1), code0.reshape(-1)
+    move, diag = _d8_tables(cols)
+    c_card, c_diag = np.float32(c_card), np.float32(c_diag)
+    dist = np.full(rows * cols, np.nan, np.float32)
+    written = np.full(rows * cols, -1)  # the round that wrote dist; -1: none
+    t = a.astype(np.int64) + b
+
+    # Fold start.
+    final = (code == tflow.UNRES) | (t == 0)
+    assert (final == ((c0 != tflow.UNRES) | (code == tflow.UNRES))).all()
+    dist[final], written[final] = 0.0, 0
+    cells = np.flatnonzero(~final)
+    m = (t[cells] - 1) % w + 1
+    q, bits = cells.copy(), np.zeros(cells.size, np.uint64)
+    for j in range(int(m.max(initial=0))):
+        on = j < m
+        d = fe[q[on]]
+        bits[on] |= diag[d].astype(np.uint64) << np.uint64(j)
+        q[on] += move[d]
+    shallow = t[cells] <= w
+    assert (c0[q[shallow]] != tflow.UNRES).all()  # q is the absorber
+    dist[cells[shallow]] = _fold_bits(bits[shallow], m[shallow], np.zeros(int(shallow.sum())),
+                                      c_card, c_diag)
+    written[cells[shallow]] = 0
+    deep = ~shallow  # the pending list, in cell order
+    cells, q, bits, m = cells[deep], q[deep], bits[deep], m[deep]
+    band = (t[cells] - 1) // w
+    pending, k_max = cells.size, int(band.max(initial=0))
+
+    # Counting sort by band.
+    if sort:
+        hist = np.zeros(k_max, np.int64)
+        np.add.at(hist, band - 1, 1)
+        offsets = np.concatenate([[0], np.cumsum(hist)])
+        cursor = offsets[:-1].copy()
+        order = np.empty(pending, np.int64)
+        for i, k in enumerate(band):
+            order[cursor[k - 1]] = i
+            cursor[k - 1] += 1
+        segments = [order[offsets[k - 1]:offsets[k]] for k in range(1, k_max + 1)]
+    else:
+        segments = [np.arange(pending)] if pending else []
+
+    # Rounds.
+    for k, seg in enumerate(segments, 1):
+        visible = dist.copy()
+        assert ((written[q[seg]] >= 0) & (written[q[seg]] < k)).all(), \
+            f"round {k} reads an anchor no earlier round wrote"
+        dist[cells[seg]] = _fold_bits(bits[seg], m[seg], visible[q[seg]], c_card, c_diag)
+        written[cells[seg]] = k
+    return code.reshape(rows, cols), dist.reshape(rows, cols), pending, k_max
 
 
-@pytest.mark.parametrize("name,max_steps,tile,halo", [
-    ("basin300", 20000, 16, 5), ("basin300", 13, 8, 3), ("lateral_channel", 1000, 8, 3),
-    ("lateral_channel", 13, 16, 7), ("two_cell_cycle", 300, 8, 3), ("nan_absorbers", 7, 8, 2),
-    ("lateral_channel", 1000, 64, 16),
-])
-def test_kernel_blocking_is_bitwise_fold_walk(name, max_steps, tile, halo):
-    fdr, river = FIXTURES[name]()
+def _model_vs_fold_walk(fdr, river, max_steps, w):
     fdr_eff, code0, (code, dist) = _fold(fdr, river, max_steps)
-    c_card, c_diag = tflow.step_consts(PX)
-    got_code, got_dist, launches = blocked_fold_state(
-        fdr_eff.numpy(), code0.numpy(), np.float32(c_card), np.float32(c_diag), max_steps, tile, halo
-    )
+    got_code, got_dist, pending, rounds = anchored_fold_state(
+        fdr_eff.numpy(), code0.numpy(), *tflow.step_consts(PX), max_steps, w)
     np.testing.assert_array_equal(got_code, code.numpy())
     np.testing.assert_array_equal(got_dist, dist.numpy())
-    assert launches <= -(-max_steps // halo)
+    _, a, b = tflow.doubling_walk(fdr_eff, code0, max_steps)
+    depth = (a + b).numpy()
+    assert pending == int((depth > w).sum())
+    assert rounds == ((int(depth.max()) - 1) // w if pending else 0)
+    return got_code, pending, rounds
+
+
+@pytest.mark.parametrize("w", [1, 2, 7, 64])
+@pytest.mark.parametrize("name,max_steps", [
+    ("basin300", 20000), ("lateral_channel", 1000), ("lateral_channel", 13),
+    ("lateral_channel", 7), ("two_cell_cycle", 300), ("nan_absorbers", 300),
+])
+def test_anchored_fold_model_is_bitwise_fold_walk(name, max_steps, w):
+    _, pending, _ = _model_vs_fold_walk(*FIXTURES[name](), max_steps, w)
+    if name == "lateral_channel" and max_steps == 1000:
+        assert pending > 0  # the rounds ran
+
+
+@pytest.mark.parametrize("w", [1, 2, 7, 64])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_anchored_fold_model_band_edges(w, delta):
+    """Walks of w*k - 1, w*k and w*k + 1 steps at caps w*k - 1, w*k and
+    w*k + 1: the longest row's first cell lands only at the last cap."""
+    k = 2
+    fdr, river = _band_edge(w, k)
+    code, _, rounds = _model_vs_fold_walk(fdr, river, w * k + delta, w)
+    assert (code[0, 0] != tflow.UNRES) == (delta == 1)
+    assert rounds == (w * k + delta - 1) // w  # the longest landed walk is w*k + delta
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_band_edges_bitwise_vs_flow_pallas(delta):
+    w, k = 7, 2
+    fdr, river = _band_edge(w, k)
+    max_steps = w * k + delta
+    wfd, widx = flow_pallas(fdr, river, PX, max_steps=max_steps, h=8, interpret=True)
+    fdr_eff, code0, _ = _fold(fdr, river, max_steps)
+    code, dist, _, _ = anchored_fold_state(fdr_eff.numpy(), code0.numpy(), *tflow.step_consts(PX),
+                                           max_steps, w)
+    fd, idx = tflow.flow_from_fold(torch.from_numpy(code), torch.from_numpy(dist))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(widx))
+    np.testing.assert_array_equal(fd.numpy(), np.asarray(wfd))
+
+
+def test_anchored_fold_model_catches_a_round_reading_its_own_band():
+    fdr, river = FIXTURES["lateral_channel"]()
+    fdr_eff, code0, _ = _fold(fdr, river, 1000)
+    with pytest.raises(AssertionError, match="no earlier round"):
+        anchored_fold_state(fdr_eff.numpy(), code0.numpy(), *tflow.step_consts(PX), 1000, 7,
+                            sort=False)
+
+
+def test_fold_wrapper_refuses_max_steps_past_2pow30_on_cpu():
+    i = torch.zeros((4, 5), dtype=torch.int32)
+    with pytest.raises(ValueError, match="2\\^30"):
+        twalk.flow_walk_blocked(i, i, 1.0, 1.5, 1 << 30)
 
 
 def test_fold_wrapper_on_cpu_runs_the_plain_engine():
