@@ -6,10 +6,16 @@
 Phases, each printing its own lines:
 
 0. device and toolchain: the card (name and power limit from nvidia-smi),
-   torch and CUDA versions, nvcc, and the build of ``csrc/*.cu``;
+   torch and CUDA versions, nvcc, the build of ``csrc/*.cu`` with each
+   stencil kernel's registers, stack and spills, the stencils' own SASS
+   instructions a cell (``cuobjdump -sass`` of the built library), the
+   least operations a cell their function needs (``stencil_floor``) and
+   the card's issue rate, which give their bound;
 1. every CUDA kernel against its plain PyTorch version on the card, at the
-   basin's shape (2178x1534, synthetic) and on adversarial fixtures
-   (long northward walks, with and without ascending bumps; a lateral
+   basin's shape (2178x1534, synthetic) and on adversarial fixtures (for
+   the stencils: NaN, +-inf, +-0.0, -100 and tied elevations at 1x1, 3x5,
+   17x33 and 2178x1534, padded blocks of those and of 4096x4096, fac int32
+   and float32; long northward walks, with and without ascending bumps; a lateral
    channel; a 40000-step serpentine, under and over the cap; 2-cell
    cycles; NaN absorbers; northward flow into a river row every 101
    rows; rows that reach the jump walk's cap at B * 2^5 - 1, + 0 and + 1
@@ -22,7 +28,8 @@ Phases, each printing its own lines:
    run), then ``classify_flood``, held against the ``engine="torch"`` run
    on the same card, with every kernel's launch count checked;
 3. timing: the suite and each kernel beside its plain version and its
-   bound, median of 5 runs after one warm-up, with CUDA events; the jump
+   bound, median of 5 runs after one warm-up, with CUDA events, and the
+   stencil's device time (torch.profiler); the jump
    walk on the basin, the north rivers (walks of 0 to 100 steps), the
    lateral channel and the serpentine: its time (CUDA events), its phase 1
    and rounds apart (device time by kernel from torch.profiler), R and the
@@ -35,7 +42,7 @@ Phases, each printing its own lines:
    grid; a forced truncation retry; ``tiled_classify_flood`` against
    ``classify_flood``; pass times, host<->device bytes and the tile
    kernels against their plain versions on one 4096x4096 tile's operands,
-   checked and timed;
+   checked and timed, with the padded stencil's device time;
 5. the large-grid entry point: ``descriptor_suite(engine="cuda_blocked")``
    at the basin's shape against ``engine="torch_blocked"``; then
    ``run_suite_checkpointed(engine="cuda_blocked")`` at 8192x8192 (phase
@@ -55,6 +62,7 @@ import importlib.metadata
 import importlib.util
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -105,14 +113,14 @@ BITWISE = ("indices", "hand", "downslope", "slope", "fdist")
 CLOSE = ("slope_rad", "twi", "mod_twi", "gfi", "ln_hl_h")
 BIG = 8192  # the tiled phase's grid side: 67,108,864 cells
 TILE = 4096  # the JAX package's default tile side
-# The H100 SXM's published peaks (NVIDIA's data sheet) at 700 W: 3.35 TB/s
-# of device memory, 67 TFLOP/s f32 outside the tensor cores; per ms.
+# The H100 SXM's published memory rate (NVIDIA's data sheet) at 700 W:
+# 3.35 TB/s, per ms.  The stencils' other bound is their operations: the
+# least a cell needs (``stencil_floor``, phase 0) at one operation per lane,
+# 4 warp instructions per SM per clock (issue_per_ms; the data sheet's 67
+# TFLOP/s of float32 is this rate with an FMA counted twice).  A walk's
+# least work is a few integer operations per cell, far under its bytes: its
+# bound is the bytes.
 HBM_BYTES_PER_MS = 3.35e9
-F32_OPS_PER_MS = 67e9
-# The stencils' operations per cell: 8 drops, divisions and maxima, then
-# atan, tan, log and pow (about 100).  A walk's least work is a few
-# integer operations per cell, far under its bytes: its bound is the bytes.
-STENCIL_OPS = 100
 
 
 def card_line():
@@ -168,43 +176,291 @@ def median_ms(fn, repeats=REPEATS):
     return statistics.median(times)
 
 
-def timed(inputs, fn, plain, ops_per_cell=0):
+def timed(inputs, fn, plain, operations_per_cell=0, issue=1.0):
     """The kernel call ``fn`` and its plain version ``plain`` (median_ms),
     with the call's bound: its inputs read once and its outputs written once
-    at the card's memory rate, or ``ops_per_cell`` operations per output
-    cell at its f32 rate, whichever takes longer."""
+    at the card's memory rate, or ``operations_per_cell`` per output cell
+    at the card's issue rate ``issue`` (thread instructions per ms),
+    whichever takes longer."""
     outputs = fn()
     moved = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
     by_bytes = moved / HBM_BYTES_PER_MS
-    by_ops = ops_per_cell * outputs[0].numel() / F32_OPS_PER_MS
+    by_ops = operations_per_cell * outputs[0].numel() / issue
     return dict(ms=median_ms(fn), plain_ms=median_ms(plain), bound_ms=max(by_bytes, by_ops),
-                bound_by="bytes" if by_bytes >= by_ops else "operations")
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes_ms=by_bytes, ops_ms=by_ops, cells=outputs[0].numel())
 
 
-def device_ms(fn, launches):
-    """Device time of one call of ``fn`` by kernel (torch.profiler, REPEATS
-    calls after one warm-up).  ``launches`` maps a fragment of a kernel's
-    name to its launches per call; each gets the mean time of the launches
-    the trace holds times that number, since a trace can miss records (most
-    at the start of a session).  Returns ({name: ms, None where the trace
-    holds none}, launches held, launches made)."""
+def device_events(fn, calls):
+    """[(name, device us in all, records)] of each device activity (kernel,
+    memset, copy) in ``calls`` calls of ``fn`` after one warm-up, traced by
+    torch.profiler.  A trace can miss records, most at the start of a
+    session: some 20 in a process that has run the 8192x8192 phases."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPEATS):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    found = {name: [0.0, 0] for name in launches}
+    events = []
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if ev.device_type == DeviceType.CUDA and ev.count and us:
+            events.append((ev.key, us, ev.count))
+    return events
+
+
+def device_ms(fn, launches):
+    """Device time of one call of ``fn`` by kernel (``device_events`` of
+    REPEATS calls).  ``launches`` maps a fragment of a kernel's name to its
+    launches per call; each gets the mean time of the launches the trace
+    holds times that number.  Returns ({name: ms, None where the trace
+    holds none}, launches held, launches made)."""
+    found = {name: [0.0, 0] for name in launches}
+    for key, us, count in device_events(fn, REPEATS):
         for name in launches:
-            if name in ev.key and us:
+            if name in key:
                 found[name][0] += us
-                found[name][1] += ev.count
+                found[name][1] += count
     ms = {k: us / n / 1e3 * launches[k] if n else None for k, (us, n) in found.items()}
     return ms, sum(n for _, n in found.values()), REPEATS * sum(launches.values())
+
+
+def device_kernels_ms(fn, calls=6 * REPEATS):
+    """Device time of one call of ``fn`` by device activity
+    (``device_events`` of ``calls`` calls, many, since a trace can miss the
+    records a session starts with): {name: ms per call}, each the mean of
+    the records held times its records per call (their count over
+    ``calls``, rounded up)."""
+    return {key: us / count / 1e3 * -(-count // calls) for key, us, count in device_events(fn, calls)}
+
+
+def sass_functions(lib):
+    """{kernel's mangled name: [(address, SASS instruction), ...]} of a
+    built library (``cuobjdump -sass``, NOPs left out)."""
+    from descriptools_tpu_torch.ops.cuda import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            cur = funcs.setdefault(head.group(1), [])
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", line)
+        if ins and cur is not None and not ins.group(2).startswith("NOP"):
+            cur.append((int(ins.group(1), 16), ins.group(2)))
+    return funcs
+
+
+def main_path(instructions):
+    """The instructions from a kernel's entry to its first unpredicated
+    EXIT: the code every thread runs, without the subroutines and cold
+    blocks placed after it."""
+    for n, (_, ins) in enumerate(instructions):
+        if ins.split()[0] == "EXIT":
+            return instructions[: n + 1]
+    return instructions
+
+
+def common_path_count(instructions, cells=1):
+    """The kernel's own SASS instructions a cell, for its issue efficiency
+    (not its bound): those of ``main_path`` less what ordinary
+    cells skip: the stubs that call out of line (from the last branch
+    before a CALL to the CALL: the IEEE division's slow path and the
+    stencil's halo load for blocks at the source's edge) and, for each
+    local-memory access (tanf's reduction of arguments past 105615), the
+    innermost region a conditional branch jumps over that holds it.  Over
+    the ``cells`` a thread computes; the loop over those cells, if the
+    kernel keeps one, is the widest backward branch whose body stores
+    (STG), and its instructions count ``cells`` times.  The halo's staging,
+    index and loop arithmetic and powf's tests of special operands stay
+    in: an upper estimate of what a thread runs."""
+    path = main_path(instructions)
+    forward, loops = [], []
+    for addr, ins in path:
+        target = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
+        if not target:
+            continue
+        to = int(target.group(1), 16)
+        if to > addr and ins.startswith("@"):
+            forward.append((addr, to))
+        elif to < addr and any("STG" in i for a, i in path if to <= a <= addr):
+            loops.append((addr - to, to, addr))
+    _, lo, hi = max(loops, default=(0, 1, 0))
+    skipped = set()
+    for addr, ins in path:
+        if re.match(r"(@\S+ )?(LDL|STL)\b", ins):
+            spans = [(to - a, a, to) for a, to in forward if a < addr < to]
+            if spans:
+                _, a, to = min(spans)
+                skipped.add((a, to))
+    count = stub = 0
+    for addr, ins in path:
+        if any(a < addr < to for a, to in skipped):
+            continue
+        words = ins.split()
+        op = words[1] if words[0].startswith("@") else words[0]
+        weight = cells if lo <= addr <= hi else 1
+        if op.startswith("CALL"):
+            count, stub = count - stub, 0
+            continue
+        count += weight
+        stub = 0 if op == "BRA" else stub + weight
+    return count / cells
+
+
+# The stencil kernels the path launches (fac int32), by a fragment of their
+# mangled names: stencil_tile_kernel<false, int> and <true, int>.
+STENCIL_SASS = {"stencil": "stencil_tile_kernelILb0EiE", "stencil_padded": "stencil_tile_kernelILb1EiE"}
+
+
+def stencil_cells(root=ROOT):
+    """Cells a thread of the checkout's tiled stencil kernel computes:
+    ``kCells`` in its ``csrc/stencil.cu``, 1 where there is none (a kernel
+    of one cell a thread)."""
+    with open(os.path.join(root, "descriptools_tpu_torch", "csrc", "stencil.cu")) as f:
+        found = re.search(r"constexpr int kCells = (\d+);", f.read())
+    return int(found.group(1)) if found else 1
+
+
+def stencil_instructions(lib):
+    """{kernel: its own common-path SASS instructions a cell} of the
+    stencils in the built library ``lib`` (``common_path_count`` over the
+    cells a thread computes), with a line for each."""
+    cells = stencil_cells()
+    per_cell = {}
+    for name, ins in sass_functions(lib).items():
+        for kernel, fragment in STENCIL_SASS.items():
+            if fragment in name:
+                per_cell[kernel] = common_path_count(ins, cells)
+                print(f"sass {kernel}: {name}: {len(ins)} instructions, {len(main_path(ins))} from the "
+                      f"entry to the first EXIT; {cells} cells a thread: {per_cell[kernel]:.2f} a cell "
+                      f"on the common path (the kernel's own)")
+    if sorted(per_cell) != sorted(STENCIL_SASS):
+        raise AssertionError(f"sass: found {sorted(per_cell)} of the stencil kernels {sorted(STENCIL_SASS)}")
+    return per_cell
+
+
+# The stencil's least work a cell, for its bound: what the bitwise contract
+# needs of any kernel (the 8 neighbours' minima with NoData left out, two
+# IEEE divisions, fac's conversion, then atanf, tanf, two logf, powf and
+# three divisions in the kernel's order) on values a thread already holds:
+# no tile, halo, loop or NoData branch.  ``stencil_floor`` compiles it
+# beside the library and counts it; it is never launched.
+STENCIL_FLOOR_CU = r"""
+#include "descriptools_tpu_torch/csrc/stencil.cu"
+
+// One buffer of planes, each kPlane floats: the cell, then its neighbours
+// E, SE, S, SW, W, NW, N, NE (planes 0-8), fac's int32 bits (9), then
+// slope, slope_rad, TWI and mod-TWI (10-13).  Every address is one
+// IMAD.WIDE and an immediate offset.
+constexpr int kPlane = 1 << 16;
+
+__global__ void stencil_cell_floor(float* __restrict__ p, float d_card, float d_diag, float px2,
+                                   float n_topo) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float* w = p + i;
+  const float zc = w[0];
+  float m_card = CUDART_INF_F;
+  float m_diag = CUDART_INF_F;
+#pragma unroll
+  for (int k = 1; k < 9; k += 2) {
+    m_card = least_valid(m_card, w[k * kPlane]);
+    m_diag = least_valid(m_diag, w[(k + 1) * kPlane]);
+  }
+  const float f = fac_value(__float_as_int(w[9 * kPlane]));
+  float best = 0.0f;
+  const float g_card = __fdiv_rn(zc - m_card, d_card);
+  if (g_card > best) best = g_card;
+  const float g_diag = __fdiv_rn(zc - m_diag, d_diag);
+  if (g_diag > best) best = g_diag;
+  const float sl = best * 100.0f;
+  const float sr = atanf(__fdiv_rn(sl, 100.0f));
+  const float area = (f == 0.0f ? 1.0f : f) * px2;
+  const float t = tanf(sr + kEps);
+  w[10 * kPlane] = sl;
+  w[11 * kPlane] = sr;
+  w[12 * kPlane] = logf(__fdiv_rn(area, t));
+  w[13 * kPlane] = logf(__fdiv_rn(powf(area, n_topo), t));
+}
+"""
+# What the floor kernel leaves out and a cell still needs: the NoData tests
+# of the cell and of fac and the four rasters' selects (6), one DEM and one
+# fac load and four stores (6).
+FLOOR_NODATA_AND_MEMORY = 12
+# SASS that moves data or steers control rather than operate on a cell's
+# values: loads and stores (counted in FLOOR_NODATA_AND_MEMORY), parameters,
+# ids, addresses, register moves and constants, branches.
+NOT_OPERATIONS = ("LDG", "STG", "LDC", "ULDC", "S2R", "S2UR", "IMAD.WIDE", "MOV", "IMAD.MOV", "UMOV",
+                  "HFMA2.MMA", "BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET")
+
+
+def fast_path_operations(instructions):
+    """Operations on the shortest way through ``main_path`` from the
+    kernel's entry to its EXIT: every conditional branch may go either way,
+    a CALL (an out-of-line slow path) costs nothing, no backward branch is
+    taken; an instruction counts 1 unless NOT_OPERATIONS names it.  For a
+    kernel with no early exit this is the least any operand runs: the
+    functions' fast paths, without their tests of special operands."""
+    path = main_path(instructions)
+    at = {addr: n for n, (addr, _) in enumerate(path)}
+    cost = [float("inf")] * len(path)  # operations before instruction n
+    cost[0] = 0
+    for n, (addr, ins) in enumerate(path[:-1]):
+        words = ins.split()
+        guarded = words[0].startswith("@")
+        op = words[1] if guarded else words[0]
+        here = cost[n] + (0 if op.startswith(NOT_OPERATIONS) else 1)
+        target = re.search(r"0x([0-9a-f]+)$", ins)
+        if op.startswith("BRA") and target:
+            to = int(target.group(1), 16)
+            if to > addr and to in at:
+                cost[at[to]] = min(cost[at[to]], here)
+            if not (guarded or re.match(r"!?U?P\d", words[-2])):
+                continue  # unconditional: no fall-through
+        cost[n + 1] = min(cost[n + 1], here)
+    return cost[-1]
+
+
+def stencil_floor(lib):
+    """The least operations a cell of the stencil's function:
+    ``fast_path_operations`` of STENCIL_FLOOR_CU, compiled with the
+    library's flags into a cubin beside ``lib``, plus
+    FLOOR_NODATA_AND_MEMORY; printed with its parts."""
+    from descriptools_tpu_torch.ops.cuda import build
+
+    src = os.path.join(os.path.dirname(lib), "stencil_floor.cu")
+    cubin = os.path.join(os.path.dirname(lib), "stencil_floor.cubin")
+    with open(src, "w") as f:
+        f.write(STENCIL_FLOOR_CU)
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    subprocess.run([build.find_nvcc(), *flags, "-cubin", "-I", ROOT, "-o", cubin, src],
+                   capture_output=True, text=True, check=True)
+    found = [ins for name, ins in sass_functions(cubin).items() if "stencil_cell_floor" in name]
+    if len(found) != 1:
+        raise AssertionError(f"sass: {len(found)} stencil_cell_floor kernels in {cubin}")
+    ops = fast_path_operations(found[0])
+    floor = ops + FLOOR_NODATA_AND_MEMORY
+    print(f"floor stencil: stencil_cell_floor {len(main_path(found[0]))} instructions from the entry to "
+          f"the EXIT, {ops} operations on the fast path, + {FLOOR_NODATA_AND_MEMORY} (NoData tests and "
+          f"selects, one DEM and one fac load, four stores) = {floor} a cell")
+    return floor
+
+
+def issue_per_ms():
+    """Thread instructions the card can issue per ms: its SMs, 4 warp
+    instructions per SM per clock, 32 lanes, at its maximum SM clock."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 4 * 32 * mhz * 1e3, sms, mhz
 
 
 def jump_profile(cases, card):
@@ -423,6 +679,16 @@ def phase_device():
     lib, seconds, log = build.build()
     regs = [ln.split("ptxas info    :")[-1].strip() for ln in log.splitlines() if "registers" in ln]
     print(f"build: {os.path.relpath(lib, ROOT)} in {seconds:.1f} s; ptxas: {'; '.join(regs)}")
+    lines = log.splitlines()
+    for n, ln in enumerate(lines):
+        if "Function properties for" in ln and "stencil_tile_kernel" in ln and n + 2 < len(lines):
+            print(f"ptxas {ln.split()[-1]}: {lines[n + 1].strip()}; {lines[n + 2].split(':', 1)[-1].strip()}")
+    own = stencil_instructions(lib)
+    floor = stencil_floor(lib)
+    issue, sms, mhz = issue_per_ms()
+    print(f"issue rate: {sms} SMs x 4 warp instructions x 32 lanes x {mhz:.0f} MHz = {issue:.4g} thread "
+          f"instructions per ms")
+    return dict(own=own, floor=floor, issue=issue)
 
 
 def phase_kernels(dev, basin, errs):
@@ -431,10 +697,11 @@ def phase_kernels(dev, basin, errs):
     from descriptools_tpu_torch.ops import flow
     from descriptools_tpu_torch.ops.cuda import stencil as st
     from descriptools_tpu_torch.ops.cuda import walk
+    from descriptools_tpu_torch.utils.synthetic import adversarial_dem
 
-    def stencil_case(label, dem, fac):
+    def stencil_case(label, dem, fac, fac_dtype=np.int32):
         dem_f = torch.as_tensor(np.asarray(dem, np.float32), device=dev)
-        fac_t = torch.as_tensor(np.asarray(fac, np.int32), device=dev)
+        fac_t = torch.as_tensor(np.asarray(fac, fac_dtype), device=dev)
         got = st.stencil(dem_f, fac_t, 12.5, 0.1)
         want = st.stencil_plain(dem_f, fac_t, 12.5, 0.1)
         e = check_bitwise(f"stencil/{label}/slope", got[0], want[0])
@@ -504,6 +771,12 @@ def phase_kernels(dev, basin, errs):
               f"{int((fd != counts[0]).sum())} cells")
 
     stencil_case(f"basin {ROWS}x{COLS}", basin["dem"], basin["fac"])
+    stencil_case(f"basin {ROWS}x{COLS}, fac f32", basin["dem"], basin["fac"], np.float32)
+    rng = np.random.default_rng(17)
+    for shape in ((1, 1), (3, 5), (17, 33), (ROWS, COLS)):
+        dem, fac = adversarial_dem(rng, shape), rng.integers(-150, 5000, size=shape)
+        for dtype in (np.int32, np.float32):
+            stencil_case(f"adversarial {shape[0]}x{shape[1]}, fac {np.dtype(dtype).name}", dem, fac, dtype)
     downslope_case(f"basin {ROWS}x{COLS}", basin["dem"], basin["fdr"], 5.0, 5000)
     flow_case(f"basin {ROWS}x{COLS}", basin["fdr"], basin["river"], 20000)
     for bump in (None, 37):
@@ -599,7 +872,27 @@ def phase_slice(dev, basin):
     return inputs, launches, out["hand"], got
 
 
-def phase_timing(dev, inputs, card):
+def stencil_device_time(label, fn, t, own, sass, card):
+    """Print the device time of one stencil call ``fn`` (torch.profiler):
+    its kernel and all its device work, beside its event time (``t``, from
+    ``timed``); then the kernel's share of its bound (the floor's
+    operations) and its issue efficiency: its ``own`` SASS a cell at the
+    card's issue rate over its device time."""
+    dev_ms = device_kernels_ms(fn)
+    kernel = sum(v for k, v in dev_ms.items() if "stencil" in k)
+    if not kernel:
+        print(f"device time {label} (torch.profiler): not measured (the trace held no stencil kernel); "
+              f"event {t['ms']:.4f} ms  [{card}]")
+        return
+    own_ms = own * t["cells"] / sass["issue"]
+    print(f"device time {label} (torch.profiler, per call): kernel {kernel:.4f} ms, all the call's device "
+          f"work {sum(dev_ms.values()):.4f} ms ({len(dev_ms)} kernels); event {t['ms']:.4f} ms; bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']}; floor {sass['floor']} operations a cell), "
+          f"{100 * t['bound_ms'] / kernel:.1f} % of it; own SASS {own:.2f} a cell, {own_ms:.4f} ms at the "
+          f"issue rate: issued at {100 * own_ms / kernel:.1f} %  [{card}]")
+
+
+def phase_timing(dev, inputs, card, sass):
     """Kernels beside their plain versions, then the suite, at the basin's
     shape."""
     from descriptools_tpu_torch import pipeline
@@ -615,16 +908,19 @@ def phase_timing(dev, inputs, card):
     stencil_in = (dem_f, fac)
     calls = {
         "stencil": (stencil_in, lambda: st.stencil(*stencil_in, 12.5, 0.1),
-                    lambda: st.stencil_plain(*stencil_in, 12.5, 0.1), STENCIL_OPS),
+                    lambda: st.stencil_plain(*stencil_in, 12.5, 0.1), sass["floor"]),
         "downslope_walk": (d_ops, lambda: walk.downslope_walk(*d_ops, 5.0, 5000),
                            lambda: down.jacobi_walk(*d_ops, 5.0, 5000), 0),
         "flow_walk": (f_ops, lambda: walk.flow_walk(*f_ops, 20000),
                       lambda: flow.doubling_walk(*f_ops, 20000), 0),
     }
-    times = {name: timed(*call) for name, call in calls.items()}
+    times = {name: timed(*call, sass["issue"]) for name, call in calls.items()}
     for name, t in times.items():
         print(f"time {name:<15} kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; bytes {t['bytes_ms']:.4f}, "
+              f"operations {t['ops_ms']:.4f})  [{card}]")
+    stencil_device_time(f"stencil {ROWS}x{COLS}", calls["stencil"][1], times["stencil"],
+                        sass["own"]["stencil"], sass, card)
     pk, _ = walk.downslope_walk(*d_ops, 5.0, 5000)
     _, a, b = walk.flow_walk(*f_ops, 20000)
     for name, steps in (("downslope", (pk & 0xFFFF) + (pk >> 16)), ("flow", a + b)):
@@ -676,6 +972,7 @@ def phase_tile_kernels(dev, basin, errs):
     from descriptools_tpu_torch.ops.cuda import stencil as st
     from descriptools_tpu_torch.ops.cuda import walk
     from descriptools_tpu_torch.parallel import boundary
+    from descriptools_tpu_torch.utils.synthetic import adversarial_dem
 
     def stencil_case(label, padded, fac):
         got = st.stencil_padded(padded, fac, 12.5, 0.1)
@@ -695,6 +992,14 @@ def phase_tile_kernels(dev, basin, errs):
     whole[1:-1, 1:-1] = dem_f
     got = stencil_case(f"basin {ROWS}x{COLS}, NoData ring", whole, fac)
     check_bitwise("stencil_padded/whole basin vs in-core stencil", got[0], st.stencil(dem_f, fac, 12.5, 0.1)[0])
+    stencil_case(f"basin {ROWS}x{COLS}, NoData ring, fac f32", whole, fac.to(torch.float32))
+    rng = np.random.default_rng(19)
+    for rows, cols in ((1, 1), (3, 5), (17, 33), (TILE, TILE)):
+        padded = torch.as_tensor(adversarial_dem(rng, (rows + 2, cols + 2)), device=dev)
+        fac_a = rng.integers(-150, 5000, size=(rows, cols))
+        for dtype in (np.int32, np.float32):
+            stencil_case(f"adversarial {rows}x{cols}, fac {np.dtype(dtype).name}", padded,
+                         torch.as_tensor(fac_a.astype(dtype), device=dev))
 
     def absorbing_check(label, fdr_eff, code0, max_steps):
         got = walk.absorbing_walk(fdr_eff, code0, max_steps)
@@ -769,7 +1074,7 @@ def phase_tile_kernels(dev, basin, errs):
     torch.cuda.synchronize()
 
 
-def phase_tiled(dev, card, classified_small, hand_small, basin, errs):
+def phase_tiled(dev, card, classified_small, hand_small, basin, errs, sass):
     """The out-of-core path at full size, a forced retry, the streaming
     calibration; pass times, link bytes, and the tile kernels against their
     plain versions on one tile's operands, checked and timed."""
@@ -850,7 +1155,7 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs):
             (padded, fac_t),
             lambda: st.stencil_padded(padded, fac_t, cfg.px, cfg.n_topo),
             lambda: st.stencil_padded_plain(padded, fac_t, cfg.px, cfg.n_topo),
-            STENCIL_OPS,
+            sass["floor"],
             ("slope", "slope_rad", "twi", "mod_twi"),
         ),
         "absorbing_walk": (
@@ -876,13 +1181,16 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs):
         errs[kernel] = max(errs[kernel], e)
         print(f"kernel {kernel:<22} one {TILE}x{TILE} tile's operands: matches plain "
               f"({', '.join(names)}; max_abs_err {e:.3g})")
-    times = {kernel: timed(*call[:4]) for kernel, call in pairs.items()}
+    times = {kernel: timed(*call[:4], sass["issue"]) for kernel, call in pairs.items()}
     torch.cuda.synchronize()
     print(f"jump absorbing_walk one {TILE}x{TILE} tile: R {walk.absorbing_walk.rounds}, cells entering "
           f"each round {walk.absorbing_walk.pending.tolist()[:-1]}")
     for name, t in times.items():
         print(f"time {name:<22} one {TILE}x{TILE} tile: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; bytes {t['bytes_ms']:.4f}, "
+              f"operations {t['ops_ms']:.4f})  [{card}]")
+    stencil_device_time(f"stencil_padded one {TILE}x{TILE} tile", pairs["stencil_padded"][1],
+                        times["stencil_padded"], sass["own"]["stencil_padded"], sass, card)
     del pairs, inputs, dem, fdr, fac, river, dem_f, padded, loc, d_ext, f_ext, tr0, d_ops
     torch.cuda.empty_cache()
 
@@ -1052,7 +1360,7 @@ def phase_checkpointed(dev, card, basin, full, errs):
 
 
 def main():
-    phase_device()
+    sass = phase_device()
     dev = torch.device("cuda", 0)
     card = card_line()
     basin = basin_inputs()
@@ -1060,9 +1368,9 @@ def main():
     phase_kernels(dev, basin, errs)
     phase_tile_kernels(dev, basin, errs)
     inputs, launches, hand_small, classified = phase_slice(dev, basin)
-    times = phase_timing(dev, inputs, card)
+    times = phase_timing(dev, inputs, card, sass)
     del inputs
-    tiled_launches, tiled_times, full = phase_tiled(dev, card, classified, hand_small, basin, errs)
+    tiled_launches, tiled_times, full = phase_tiled(dev, card, classified, hand_small, basin, errs, sass)
     launches.update({k: tiled_launches[k] for k in TILED})
     times.update(tiled_times)
     blocked_launches, blocked_times = phase_checkpointed(dev, card, basin, full, errs)
@@ -1070,8 +1378,8 @@ def main():
     times.update(blocked_times)
     # No single PyTorch call computes any of these functions: library_ms null.
     kernels = [
-        dict(name=name, route="cuda", **meta, launches=launches[name],
-             max_abs_err=errs[name], **times[name], library_ms=None)
+        dict(name=name, route="cuda", **meta, launches=launches[name], max_abs_err=errs[name],
+             **{k: times[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, library_ms=None)
         for name, meta in KERNELS.items()
     ]
     print(card)  # name and power limit, as nvidia-smi gives them

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's flow walks and suite in several checkouts, in one call.
+"""Time the port's flow walks, stencils and suite in several checkouts, in one call.
 
     python3 compare_walks.py OLD NEW NEW OLD    # each the root of a checkout
 
@@ -17,22 +17,31 @@ generators), the same in every process.  Each process times, on one card:
   grid in 4096x4096 tiles;
 - ``flow_walk_blocked`` (K7) at 2178x1534, cap 20000, on the basin, the
   north rivers and the lateral channel;
+- ``stencil`` (K2) on the synthetic basin and ``stencil_padded`` (K1) on
+  tile (0, 0)'s padded 4098x4098 block of that grid: event time, device
+  time (torch.profiler: the stencil kernel alone and all the call's device
+  work), a sha256 of the four rasters, and the SASS instructions of the
+  checkout's stencil kernels;
 - ``descriptor_suite`` on the synthetic basin, default configuration and
   ``engine="cuda_blocked"`` (with the latter's peak device memory);
 
 each count walk held bitwise against ``doubling_walk`` and each fold walk
 against ``fold_walk``, each time the median of
-20 CUDA-event runs after a warm-up.  Every process prints its numbers; the
-last line is one JSON object with all of them and the card's name and
-power limit.
+20 CUDA-event runs after a warm-up.  Every process prints its numbers, and
+whether the stencils' rasters are identical in every checkout; the last
+line is one JSON object with all of them and the card's name and power
+limit.
 """
 
+import hashlib
 import importlib.util
 import json
 import os
 import statistics
 import subprocess
 import sys
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPEATS = 20
@@ -62,9 +71,10 @@ def one(tree):
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     import descriptools_tpu_torch
-    from descriptools_tpu_torch import pipeline
+    from descriptools_tpu_torch import pipeline, tiled
     from descriptools_tpu_torch.ops import flow
-    from descriptools_tpu_torch.ops.cuda import walk
+    from descriptools_tpu_torch.ops.cuda import build, walk
+    from descriptools_tpu_torch.ops.cuda import stencil as st
     from descriptools_tpu_torch.parallel import boundary
     from descriptools_tpu_torch.utils.synthetic import windowed_basin
 
@@ -99,6 +109,27 @@ def one(tree):
             cs.check_bitwise(f"flow_walk_blocked {label}/{name}", g, w)
         ms[f"flow_walk_blocked {label}"] = median_ms(
             torch, lambda: walk.flow_walk_blocked(*ops, *consts, 20000))
+    # The stencils: K2 on the basin, K1 on tile (0, 0)'s 4098x4098 padded
+    # block (a NoData ring above and to the left, real neighbours below and
+    # to the right), each with its device time and its rasters' sha256.
+    dem_dt = np.asarray(loaders["dem"](0, 1, 0, 1)).dtype
+    padded = tiled.load_window(loaders["dem"], 0, cs.TILE, 0, cs.TILE, (cs.BIG, cs.BIG), -100, dem_dt, halo=1)
+    padded = torch.as_tensor(padded, device=dev).to(torch.float32).contiguous()
+    fac_tile = torch.as_tensor(np.asarray(loaders["fac"](0, cs.TILE, 0, cs.TILE), np.int32), device=dev)
+    stencils = {
+        "stencil basin": (st.stencil, (inputs[0].to(torch.float32), inputs[2])),
+        "stencil_padded 4096x4096 tile": (st.stencil_padded, (padded, fac_tile)),
+    }
+    device, sha = {}, {}
+    for label, (fn, ops) in stencils.items():
+        call = lambda: fn(*ops, 12.5, 0.1)
+        sha[label] = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in call())).hexdigest()
+        ms[label] = median_ms(torch, call)
+        by_kernel = cs.device_kernels_ms(call)
+        kernel = [v for k, v in by_kernel.items() if "stencil" in k]
+        device[label] = dict(kernel=sum(kernel) if kernel else None, call=sum(by_kernel.values()),
+                             by_kernel=by_kernel)
+    del padded, fac_tile
     cfg = pipeline.PipelineConfig()
     ms["descriptor_suite basin"] = median_ms(torch, lambda: pipeline.descriptor_suite(*inputs, cfg))
     blocked = pipeline.PipelineConfig(engine="cuda_blocked")
@@ -111,7 +142,12 @@ def one(tree):
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
     # B of a tree with the jump walk; None for one with the serial walk.
     bound = walk.jump_bound() if hasattr(walk, "jump_bound") else None
+    lib = build.build()[0]
+    cells = cs.stencil_cells(tree)
+    sass = {name: dict(main=len(cs.main_path(ins)), total=len(ins), per_cell=cs.common_path_count(ins, cells))
+            for name, ins in cs.sass_functions(lib).items() if "stencil" in name}
     print(json.dumps({"tree": tree, "package": package, "B": bound, "ms": ms,
+                      "stencil_device_ms": device, "stencil_sha256": sha, "stencil_sass": sass,
                       "cuda_blocked_suite_peak_MiB": peak_mib}))
 
 
@@ -129,6 +165,18 @@ def main(trees):
         runs.append(run)
         print(f"{tree} (B {run['B']}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in run["ms"].items())
               + f"; cuda_blocked suite peak {run['cuda_blocked_suite_peak_MiB']:.3f} MiB")
+        for label, dev in run["stencil_device_ms"].items():
+            shown = ("not measured (the trace held no stencil kernel)" if dev["kernel"] is None else
+                     f"{dev['kernel']:.4f} ms in the stencil kernel, {dev['call']:.4f} ms in all the call's "
+                     f"device work ({', '.join(dev['by_kernel'])})")
+            print(f"{tree} {label}: device {shown}; event {run['ms'][label]:.4f} ms; rasters sha256 "
+                  f"{run['stencil_sha256'][label]}")
+        print(f"{tree} stencil SASS instructions (common path a cell; entry to first EXIT, all): "
+              + ", ".join(f"{k} {v['per_cell']:.2f}; {v['main']}, {v['total']}"
+                          for k, v in run["stencil_sass"].items()))
+    for label in runs[0]["stencil_sha256"]:
+        same = len({run["stencil_sha256"][label] for run in runs}) == 1
+        print(f"{label}: the four rasters are {'identical' if same else 'NOT identical'} in every checkout")
     card = cs.card_line()
     print(card)
     print(json.dumps({"card": card, "repeats": REPEATS, "runs": runs}))

@@ -1,47 +1,72 @@
 // Stencil stage of the descriptor suite: slope, slope_rad, TWI and
 // modified TWI of every cell, in one pass.
 //
-// stencil_kernel replaces descriptools_tpu/ops/pallas/stencil.py::
-// _fused_kernel (slope + TWI over DMA-streamed row bands) and extends it to
-// all four rasters of the stencil stage (descriptools_tpu/pipeline.py
-// descriptor_suite).  Out-of-grid neighbours read as NoData, like the
-// 1-cell NoData ring of the JAX pad.
+// One kernel body, stencil_tile_kernel, behind two entry points; only how
+// it finds the halo in its source (Source<kPadded>: no ring, or a 1-cell
+// ring) differs:
+// - launch_stencil (a whole grid) replaces descriptools_tpu/ops/pallas/
+//   stencil.py::_fused_kernel (slope + TWI over DMA-streamed row bands) and
+//   extends it to all four rasters of the stencil stage
+//   (descriptools_tpu/pipeline.py descriptor_suite).  Neighbours outside
+//   the grid read as NoData, like the 1-cell NoData ring of the JAX pad.
+// - launch_stencil_padded (the interior of a 1-ring-padded block) replaces
+//   descriptools_tpu/ops/pallas/stencil.py::_slope_kernel and emits the
+//   same four rasters: the ring holds a tile's real neighbours, or NoData at
+//   the grid's border (the per-tile stencil of descriptools_tpu/tiled.py).
 //
-// stencil_padded_kernel replaces descriptools_tpu/ops/pallas/stencil.py::
-// _slope_kernel (slope of the interior of a 1-ring-padded block) and emits
-// the same four rasters: the ring holds a tile's real neighbours, or NoData
-// at the grid's border (the per-tile stencil of descriptools_tpu/tiled.py).
-//
-// Bound: device-memory bytes.  Per cell it reads the DEM (4 B, each value
-// reused by up to 9 threads through L1/L2) and fac (4 B) and writes four
-// float32 rasters (16 B), with ~10 divisions and 4 transcendentals: far
-// below the card's arithmetic rate.  Design: one thread per cell, the
-// threads of a block on consecutive cells of the row-major raster so that
-// loads and stores coalesce.
-// Exactness: the 8 divisors are formed on the host as f32(px * double(step))
+// Bound: a cell moves 24 B (the DEM and fac read, four float32 rasters
+// written), 0.12 ms per 4096 x 4096 tile at 3.35 TB/s, and needs at least
+// about 215 operations (chip_smoke.py's stencil_floor: the minima, two
+// divisions and the tail's fast paths), 0.11 ms at 4 warp instructions per
+// SM per clock on an H100 at 1980 MHz: the bytes bound the function.  What
+// holds a kernel back is instruction issue all the same: on top of the
+// floor it runs the tail's tests of special operands and register moves
+// (the tail, atanf, tanf, two logf, powf and three IEEE divisions, stays
+// as it is, for bitwise rasters), and its own staging and indexing.
+// Design, to spend as few instructions as possible outside that tail:
+// - a block of 32 x 8 threads stages a 32-column x 32-row tile and its
+//   one-cell halo in shared memory: warp y reads halo rows y, y + 8, ...,
+//   one lane a column, coalesced; a block whose halo lies in the source
+//   reads without a test, a block at its edge calls stage_edge_halo,
+//   which writes NoData where the source holds no cell.  The compute has
+//   no bounds test per neighbour and no integer division; each thread then
+//   takes 4 cells down its column, and a warp stores each raster along a
+//   row, coalesced;
+// - slope in two IEEE divisions instead of eight: for d > 0,
+//   fl(fl(zc - n) / d) does not increase with n (rounding is monotone), so
+//   the steepest gradient of the 4 cardinal (or the 4 diagonal) neighbours
+//   is that of their least elevation.  -100 neighbours are left out before
+//   the minimum; fminf skips NaN ones, whose gradient never passed the
+//   strict > of the 8-division form.  The result is bitwise that form's;
+// - fac is read in its own type (int32 or float32); __int2float_rn is
+//   PyTorch's cast.
+// Exactness: the divisors are formed on the host as f32(px * double(step))
 // and every division is IEEE (no fast math, built with -fmad=false), so the
-// slope is bitwise the plain PyTorch one; atanf/tanf/logf/powf differ from
-// other libraries' by a few ulp.
+// slope is bitwise the plain PyTorch one; atanf/tanf/logf/powf are called
+// in the plain version's order and differ from other libraries' by a few
+// ulp.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace {
 
 constexpr float kNoData = -100.0f;
 constexpr float kEps = 0.01f;
+constexpr int kTileW = 32;                     // a tile's columns: one warp
+constexpr int kThreadRows = 8;                 // rows of threads in a block
+constexpr int kCells = 4;                      // cells a thread computes
+constexpr int kTileH = kThreadRows * kCells;   // a tile's rows
+constexpr int kHaloW = kTileW + 2;
+constexpr int kLoadRows = (kTileH + 2 + kThreadRows - 1) / kThreadRows;  // halo rows a warp reads
+constexpr int kThreads = kTileW * kThreadRows;
 
-struct Divisors {
-  float d[8];
-};
+__device__ __forceinline__ float fac_value(float f) { return f; }
+__device__ __forceinline__ float fac_value(int f) { return __int2float_rn(f); }
 
-// D8 order: E, SE, S, SW, W, NW, N, NE.
-__constant__ int kDy[8] = {0, 1, 1, 1, 0, -1, -1, -1};
-__constant__ int kDx[8] = {1, 1, 0, -1, -1, -1, 0, 1};
-
-// One direction of the slope's max: keeps the steeper valid gradient.
-__device__ __forceinline__ void steepest(float zc, float nbr, float div, float& best) {
-  const float grad = __fdiv_rn(zc - nbr, div);
-  if (nbr != kNoData && grad > best) best = grad;
+// The least of m and a neighbour, NoData neighbours left out.
+__device__ __forceinline__ float least_valid(float m, float nbr) {
+  return nbr != kNoData ? fminf(m, nbr) : m;
 }
 
 // slope, slope_rad, TWI and mod-TWI of one cell from its steepest gradient.
@@ -61,90 +86,150 @@ __device__ __forceinline__ void write_stage(int idx, float zc, float best, float
   mod_twi[idx] = f <= kNoData ? kNoData : logf(__fdiv_rn(powf(area, n_topo), t));
 }
 
-__global__ void stencil_kernel(const float* __restrict__ dem,
-                               const float* __restrict__ fac,
-                               float* __restrict__ slope,
-                               float* __restrict__ slope_rad,
-                               float* __restrict__ twi,
-                               float* __restrict__ mod_twi, int rows, int cols,
-                               Divisors div, float px2, float n_topo) {
-  const long long cell = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (cell >= static_cast<long long>(rows) * cols) return;
-  const int idx = static_cast<int>(cell);
-  const int i = idx / cols;
-  const int j = idx - i * cols;
-  const float zc = dem[idx];
-  float best = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int y = i + kDy[k];
-    const int x = j + kDx[k];
-    const bool inside = y >= 0 && y < rows && x >= 0 && x < cols;
-    steepest(zc, inside ? dem[y * cols + x] : kNoData, div.d[k], best);
+// The source holds grid row i (from -kRing to rows + kRing - 1) and
+// column j likewise at src[(i + kRing) * pitch + j + kRing]: the whole grid
+// has no ring (cells beyond it read as NoData), the padded block its 1-cell
+// ring, read as given.
+template <bool kPadded>
+struct Source {
+  static constexpr int kRing = kPadded ? 1 : 0;
+  const float* src;
+  int rows, cols, pitch;
+  __device__ Source(const float* s, int r, int c)
+      : src(s), rows(r), cols(c), pitch(c + 2 * kRing) {}
+  __device__ int at(int i, int j) const { return (i + kRing) * pitch + j + kRing; }
+  __device__ bool holds(int i, int j) const {
+    return i >= -kRing && i < rows + kRing && j >= -kRing && j < cols + kRing;
   }
-  write_stage(idx, zc, best, fac[idx], px2, n_topo, slope, slope_rad, twi, mod_twi);
-}
+};
 
-// padded: (rows + 2) x (cols + 2); fac and the outputs: rows x cols.
-__global__ void stencil_padded_kernel(const float* __restrict__ padded,
-                                      const float* __restrict__ fac,
-                                      float* __restrict__ slope,
-                                      float* __restrict__ slope_rad,
-                                      float* __restrict__ twi,
-                                      float* __restrict__ mod_twi, int rows,
-                                      int cols, Divisors div, float px2,
-                                      float n_topo) {
-  const long long cell = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (cell >= static_cast<long long>(rows) * cols) return;
-  const int idx = static_cast<int>(cell);
-  const int i = idx / cols;
-  const int j = idx - i * cols;
-  const int pcols = cols + 2;
-  const int c = (i + 1) * pcols + (j + 1);
-  const float zc = padded[c];
-  float best = 0.0f;
+// Stage the halo of a block at the source's edge (see stencil_tile_kernel),
+// reading only the cells the source holds; the rest are NoData.  Out of
+// line: most blocks take the kernel's test-free path.
+template <bool kPadded>
+__device__ __noinline__ void stage_edge_halo(Source<kPadded> g, float* tile, int i0, int j0) {
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int jh = j0 - 1 + tx;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    steepest(zc, padded[c + kDy[k] * pcols + kDx[k]], div.d[k], best);
+  for (int s = 0; s < kLoadRows; ++s) {
+    const int i = i0 - 1 + ty + s * kThreadRows;
+    tile[(ty + s * kThreadRows) * kHaloW + tx] = g.holds(i, jh) ? g.src[g.at(i, jh)] : kNoData;
   }
-  write_stage(idx, zc, best, fac[idx], px2, n_topo, slope, slope_rad, twi, mod_twi);
+  const int tid = ty * kTileW + tx;
+  if (tid < 2 * (kTileH + 2)) {
+    const int i = i0 - 1 + (tid >> 1);
+    const int j = j0 - 1 + kTileW + (tid & 1);
+    tile[(tid >> 1) * kHaloW + kTileW + (tid & 1)] = g.holds(i, j) ? g.src[g.at(i, j)] : kNoData;
+  }
 }
 
-constexpr int kThreads = 256;
-
-unsigned blocks_for(int rows, int cols) {
-  const long long n = static_cast<long long>(rows) * cols;
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+// fac and the outputs: rows x cols.  d_card, d_diag: the slope's divisors
+// of the cardinal and the diagonal neighbours.
+template <bool kPadded, typename Fac>
+__global__ void __launch_bounds__(kThreads)
+    stencil_tile_kernel(const float* __restrict__ src, const Fac* __restrict__ fac,
+                        float* __restrict__ slope, float* __restrict__ slope_rad,
+                        float* __restrict__ twi, float* __restrict__ mod_twi, int rows,
+                        int cols, float d_card, float d_diag, float px2, float n_topo) {
+  const Source<kPadded> g(src, rows, cols);
+  __shared__ float tile[kLoadRows * kThreadRows * kHaloW];
+  const int i0 = blockIdx.y * kTileH;
+  const int j0 = blockIdx.x * kTileW;
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  // Stage the tile and its halo: warp ty reads halo rows ty, ty + 8, ...
+  // (rows 34-39 are read and not used), lane tx halo column tx; threads
+  // 0-67 then read columns 32 and 33 of the 34 rows.  A block whose halo
+  // lies wholly in the source reads without a test.
+  if (g.holds(i0 - 1, j0 - 1) && g.holds(i0 - 2 + kLoadRows * kThreadRows, j0 + kTileW)) {
+    const float* p = src + g.at(i0 - 1 + ty, j0 - 1 + tx);
+#pragma unroll
+    for (int s = 0; s < kLoadRows; ++s) {
+      tile[(ty + s * kThreadRows) * kHaloW + tx] = p[s * kThreadRows * g.pitch];
+    }
+    const int tid = ty * kTileW + tx;
+    if (tid < 2 * (kTileH + 2)) {
+      tile[(tid >> 1) * kHaloW + kTileW + (tid & 1)] =
+          src[g.at(i0 - 1 + (tid >> 1), j0 - 1 + kTileW + (tid & 1))];
+    }
+  } else {
+    stage_edge_halo(g, tile, i0, j0);
+  }
+  __syncthreads();
+  const int j = j0 + tx;
+  if (j >= cols) return;
+#pragma unroll 1
+  for (int c = 0; c < kCells; ++c) {
+    const int r = ty + c * kThreadRows;  // the cell's row in the tile
+    const int i = i0 + r;
+    if (i < rows) {
+      const float* w = tile + (r + 1) * kHaloW + tx + 1;  // the cell
+      const float zc = w[0];
+      float m_card = CUDART_INF_F;
+      float m_diag = CUDART_INF_F;
+      m_card = least_valid(m_card, w[1]);            // E
+      m_card = least_valid(m_card, w[kHaloW]);       // S
+      m_card = least_valid(m_card, w[-1]);           // W
+      m_card = least_valid(m_card, w[-kHaloW]);      // N
+      m_diag = least_valid(m_diag, w[kHaloW + 1]);   // SE
+      m_diag = least_valid(m_diag, w[kHaloW - 1]);   // SW
+      m_diag = least_valid(m_diag, w[-kHaloW - 1]);  // NW
+      m_diag = least_valid(m_diag, w[-kHaloW + 1]);  // NE
+      float best = 0.0f;
+      const float g_card = __fdiv_rn(zc - m_card, d_card);
+      if (g_card > best) best = g_card;
+      const float g_diag = __fdiv_rn(zc - m_diag, d_diag);
+      if (g_diag > best) best = g_diag;
+      const int idx = i * cols + j;
+      write_stage(idx, zc, best, fac_value(fac[idx]), px2, n_topo, slope, slope_rad, twi,
+                  mod_twi);
+    }
+  }
 }
 
-Divisors divisors_of(const float* divisors) {
-  Divisors div;
-  for (int k = 0; k < 8; ++k) div.d[k] = divisors[k];
-  return div;
+template <bool kPadded>
+int launch(const float* src, const void* fac, int fac_is_int32, float* slope,
+           float* slope_rad, float* twi, float* mod_twi, int rows, int cols, float d_card,
+           float d_diag, float px2, float n_topo, void* stream) {
+  if (rows <= 0 || cols <= 0) return 0;
+  // Offsets are int: the source, with its ring and the halo rows a tile
+  // reads past the grid, must hold fewer than 2^31 cells.
+  if (static_cast<long long>(rows + 2 * kTileH) * (cols + 2) >= (1LL << 31)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid((cols + kTileW - 1) / kTileW, (rows + kTileH - 1) / kTileH);
+  const dim3 block(kTileW, kThreadRows);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (fac_is_int32) {
+    stencil_tile_kernel<kPadded, int><<<grid, block, 0, s>>>(
+        src, static_cast<const int*>(fac), slope, slope_rad, twi, mod_twi, rows, cols, d_card,
+        d_diag, px2, n_topo);
+  } else {
+    stencil_tile_kernel<kPadded, float><<<grid, block, 0, s>>>(
+        src, static_cast<const float*>(fac), slope, slope_rad, twi, mod_twi, rows, cols, d_card,
+        d_diag, px2, n_topo);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int launch_stencil(const float* dem, const float* fac, float* slope,
-                              float* slope_rad, float* twi, float* mod_twi,
-                              int rows, int cols, const float* divisors,
-                              float px2, float n_topo, void* stream) {
-  const unsigned blocks = blocks_for(rows, cols);
-  if (blocks == 0) return 0;
-  stencil_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      dem, fac, slope, slope_rad, twi, mod_twi, rows, cols, divisors_of(divisors),
-      px2, n_topo);
-  return static_cast<int>(cudaGetLastError());
+// fac: int32 (fac_is_int32 != 0) or float32.  d_card, d_diag: the slope's
+// divisors of the 4 cardinal and the 4 diagonal neighbours (the wrapper
+// checks that the 8 D8 divisors take just these two values).
+extern "C" int launch_stencil(const float* dem, const void* fac, int fac_is_int32, float* slope,
+                              float* slope_rad, float* twi, float* mod_twi, int rows, int cols,
+                              float d_card, float d_diag, float px2, float n_topo, void* stream) {
+  return launch<false>(dem, fac, fac_is_int32, slope, slope_rad, twi, mod_twi, rows, cols,
+                       d_card, d_diag, px2, n_topo, stream);
 }
 
-extern "C" int launch_stencil_padded(const float* padded, const float* fac, float* slope,
-                                     float* slope_rad, float* twi, float* mod_twi,
-                                     int rows, int cols, const float* divisors,
-                                     float px2, float n_topo, void* stream) {
-  const unsigned blocks = blocks_for(rows, cols);
-  if (blocks == 0) return 0;
-  stencil_padded_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      padded, fac, slope, slope_rad, twi, mod_twi, rows, cols, divisors_of(divisors),
-      px2, n_topo);
-  return static_cast<int>(cudaGetLastError());
+// padded: (rows + 2) x (cols + 2); fac and the outputs: rows x cols.
+extern "C" int launch_stencil_padded(const float* padded, const void* fac, int fac_is_int32,
+                                     float* slope, float* slope_rad, float* twi,
+                                     float* mod_twi, int rows, int cols, float d_card,
+                                     float d_diag, float px2, float n_topo, void* stream) {
+  return launch<true>(padded, fac, fac_is_int32, slope, slope_rad, twi, mod_twi, rows, cols,
+                      d_card, d_diag, px2, n_topo, stream);
 }

@@ -39,12 +39,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points and their argument types (csrc/*.cu).
 SIGNATURES = {
-    # dem, fac, slope, slope_rad, twi, mod_twi, rows, cols, divisors[8],
-    # px*px, n_topo, stream
-    "launch_stencil": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _F, _F, _VP],
-    # padded (rows+2 x cols+2), fac, slope, slope_rad, twi, mod_twi, rows,
-    # cols (of the interior), divisors[8], px*px, n_topo, stream
-    "launch_stencil_padded": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _F, _F, _VP],
+    # dem, fac, fac is int32 (else float32), slope, slope_rad, twi, mod_twi,
+    # rows, cols, d_card, d_diag, px*px, n_topo, stream
+    "launch_stencil": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _I, _I, _F, _F, _F, _F, _VP],
+    # padded (rows+2 x cols+2), fac, fac is int32, slope, slope_rad, twi,
+    # mod_twi, rows, cols (of the interior), d_card, d_diag, px*px, n_topo,
+    # stream
+    "launch_stencil_padded": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _I, _I, _F, _F, _F, _F, _VP],
     # fdr_eff, z, zt0, pk, zt, rows, cols, ed, max_steps, stream
     "launch_downslope_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
     # fdr_eff, z, zt0, trunc0, pk, zt, trunc, rows, cols, ed, max_steps, stream

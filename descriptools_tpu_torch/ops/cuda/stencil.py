@@ -10,12 +10,12 @@ Wrappers of ``csrc/stencil.cu``:
   emits the same four rasters; its plain version is
   :func:`stencil_padded_plain`.
 
-On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
-its plain version, the same function in torch ops.  There is no other
-fallback.
+Both launch one kernel body, ``stencil_tile_kernel``, which takes the
+slope in two divisions (:func:`slope_divisor_pair`) and reads fac as int32
+or float32 (:func:`fac_operand`).  On a CUDA tensor each wrapper launches
+its kernel; on a CPU tensor it runs its plain version, the same function in
+torch ops.  There is no other fallback.
 """
-
-import ctypes
 
 import numpy as np
 import torch
@@ -29,6 +29,7 @@ from descriptools_tpu_torch.ops.topo import (
 )
 
 NAMES = ("slope", "slope_rad", "twi", "mod_twi")
+FAC_DTYPES = (torch.int32, torch.float32)  # the kernel reads these as they are
 
 
 def _stage_tail(sl, dem_f, fac, px, n_topo):
@@ -51,15 +52,36 @@ def stencil_padded_plain(padded, fac, px, n_topo):
     return _stage_tail(slope_from_padded(padded, px), padded[1:-1, 1:-1], fac, px, n_topo)
 
 
+def slope_divisor_pair(px):
+    """The slope's (cardinal, diagonal) divisors.  The kernel divides once
+    per group, by the least valid neighbour, which is bitwise the 8
+    divisions only if each group has one positive divisor: raises
+    ``ValueError`` otherwise."""
+    div = slope_divisors(px)
+    card, diag = div[0], div[1]
+    if not all(d == (card, diag)[k % 2] and d > 0 for k, d in enumerate(div)):
+        raise ValueError(f"stencil: the slope divisors {div} are not one positive value for the "
+                         "cardinal neighbours and one for the diagonal ones")
+    return card, diag
+
+
+def fac_operand(fac):
+    """fac as the kernel reads it: int32 and float32 as they are, any other
+    dtype cast to float32, as the plain version's ``fac.to(float32)``."""
+    if fac.dtype not in FAC_DTYPES:
+        fac = fac.to(torch.float32)
+    return fac.contiguous()
+
+
 def _launch(entry, dem_f, fac, shape, px, n_topo):
-    fac = fac.to(torch.float32).contiguous()
-    build.check_cuda_tensor(fac, "fac", torch.float32, shape)
+    d_card, d_diag = slope_divisor_pair(px)
+    fac = fac_operand(fac)
+    build.check_cuda_tensor(fac, "fac", fac.dtype, shape)
     outs = [torch.empty(shape, dtype=torch.float32, device=dem_f.device) for _ in NAMES]
-    divisors = (ctypes.c_float * 8)(*slope_divisors(px))
     with torch.cuda.device(dem_f.device):
         build.launch(
-            entry, dem_f.data_ptr(), fac.data_ptr(), *(o.data_ptr() for o in outs),
-            shape[0], shape[1], ctypes.cast(divisors, ctypes.c_void_p),
+            entry, dem_f.data_ptr(), fac.data_ptr(), int(fac.dtype == torch.int32),
+            *(o.data_ptr() for o in outs), shape[0], shape[1], float(d_card), float(d_diag),
             float(np.float32(px * px)), float(np.float32(n_topo)),
             build.stream_handle(dem_f.device),
         )
@@ -70,8 +92,9 @@ def stencil(dem_f, fac, px, n_topo):
     """(slope, slope_rad, twi, mod_twi) of a float32 DEM and its fac.
 
     CUDA tensors: one launch of the stencil kernel.  CPU tensors: the plain
-    torch version."""
+    torch version.  Either raises unless ``slope_divisor_pair(px)`` holds."""
     if not dem_f.is_cuda:
+        slope_divisor_pair(px)
         return stencil_plain(dem_f, fac, px, n_topo)
     shape = tuple(dem_f.shape)
     build.check_cuda_tensor(dem_f, "dem_f", torch.float32, shape)
@@ -89,8 +112,10 @@ def stencil_padded(padded, fac, px, n_topo):
     is the interior's.
 
     CUDA tensors: one launch of the padded stencil kernel.  CPU tensors: the
-    plain torch version."""
+    plain torch version.  Either raises unless ``slope_divisor_pair(px)``
+    holds."""
     if not padded.is_cuda:
+        slope_divisor_pair(px)
         return stencil_padded_plain(padded, fac, px, n_topo)
     shape = (padded.shape[0] - 2, padded.shape[1] - 2)
     build.check_cuda_tensor(padded, "padded", torch.float32, (shape[0] + 2, shape[1] + 2))
@@ -100,3 +125,4 @@ def stencil_padded(padded, fac, px, n_topo):
 
 
 stencil_padded.launches = 0
+

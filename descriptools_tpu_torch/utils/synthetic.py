@@ -191,3 +191,23 @@ def synthetic_basin(rows, cols, seed=0, river_quantile=0.15):
     rng = np.random.default_rng(seed + 1)
     fac = np.where(valid, rng.integers(0, 200000, size=dem.shape), NODATA)
     return dem, fdr, river, fac
+
+
+ADVERSARIAL_VALUES = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, NODATA, 1e-7, -1e-7], np.float32)
+
+
+def adversarial_dem(rng, shape, special=0.1):
+    """A float32 DEM on the edges of the slope stencil's arithmetic: normal
+    values at a scale of 1e-3 to 1e3 by row, ties (every third row rounded
+    to integers), NaN, +-inf, +-0.0, -100 (NoData) and +-1e-7 in a share
+    ``special`` of the cells and, on grids of 3x3 or more, a valid cell in
+    the corner whose whole ring is NoData.  ``rng``: a numpy Generator."""
+    scale = 10.0 ** rng.integers(-3, 4, size=(shape[0], 1))
+    dem = (rng.standard_normal(shape) * scale).astype(np.float32)
+    dem[::3] = np.round(dem[::3])
+    mask = rng.random(shape) < special
+    dem[mask] = rng.choice(ADVERSARIAL_VALUES, int(mask.sum()))
+    if min(shape) >= 3:
+        dem[:3, :3] = NODATA
+        dem[1, 1] = 1.0
+    return dem

@@ -17,7 +17,7 @@ from descriptools_tpu_torch.ops import flow
 from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
 from descriptools_tpu_torch.ops.cuda import stencil as st
 from descriptools_tpu_torch.ops.cuda import walk
-from descriptools_tpu_torch.utils.synthetic import windowed_basin
+from descriptools_tpu_torch.utils.synthetic import adversarial_dem, windowed_basin
 
 pytestmark = pytest.mark.cuda
 
@@ -43,6 +43,31 @@ def test_stencil_kernel_matches_plain(dev, basin):
     assert torch.equal(got[0], want[0])
     for g, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, w, rtol=2e-5, atol=1e-4, equal_nan=True)
+
+
+def _check_stage(got, want):
+    assert torch.equal(got[0], want[0])  # slope, bitwise
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=1e-4, equal_nan=True)
+
+
+@pytest.mark.parametrize("fac_dtype", [torch.int32, torch.float32])
+def test_stencil_kernels_match_plain_at_ragged_shapes(dev, fac_dtype):
+    """K2 (whole grid) and K1 (padded block) against their plain versions at
+    shapes that are not multiples of the kernel's 32 x 32 tile, on
+    adversarial elevations, with fac read in its own type."""
+    rng = np.random.default_rng(23)
+    for rows, cols in ((1, 1), (3, 5), (17, 33), (2178, 1534), (4096, 4096)):
+        fac = torch.as_tensor(rng.integers(-150, 5000, size=(rows, cols)), device=dev).to(fac_dtype)
+        cases = [(st.stencil_padded, st.stencil_padded_plain, (rows + 2, cols + 2))]
+        if rows < 4096:
+            cases.append((st.stencil, st.stencil_plain, (rows, cols)))
+        for fn, plain, shape in cases:
+            src = torch.as_tensor(adversarial_dem(rng, shape), device=dev)
+            before = fn.launches
+            got = fn(src, fac, 12.5, 0.1)
+            assert fn.launches == before + 1
+            _check_stage(got, plain(src, fac, 12.5, 0.1))
 
 
 def test_walk_kernels_match_plain(dev, basin):
