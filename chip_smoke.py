@@ -15,7 +15,11 @@ Phases, each printing its own lines:
    basin's shape (2178x1534, synthetic) and on adversarial fixtures (for
    the stencils: NaN, +-inf, +-0.0, -100 and tied elevations at 1x1, 3x5,
    17x33 and 2178x1534, padded blocks of those and of 4096x4096, fac int32
-   and float32; long northward walks, with and without ascending bumps; a lateral
+   and float32; long northward walks, with and without ascending bumps;
+   for the downslope kernel ``utils.synthetic.downslope_cases`` (NoData
+   starts and targets, border exits, invalid codes, fdr int16, int32 and
+   int64 with 257 and -1, a terminal that holds its walks still,
+   fractional terminal stops) and the basin with fdr int32; a lateral
    channel; a 40000-step serpentine, under and over the cap; 2-cell
    cycles; NaN absorbers; northward flow into a river row every 101
    rows; rows that reach the jump walk's cap at B * 2^5 - 1, + 0 and + 1
@@ -23,13 +27,17 @@ Phases, each printing its own lines:
    + 1 steps, the edges of its bands); one flow walk under
    ``torch.cuda.set_sync_debug_mode("error")``; the tiled path's kernels
    on tile operands (basin windows and tiles, a lateral channel cut into
-   tiles, a flat eastward walk and a ramp cut by a window edge);
+   tiles, a flat eastward walk, a ramp and adversarial windows cut by a
+   window edge, the tracked downslope at halos 0 and 8);
 2. the in-core path: ``descriptor_suite`` on CUDA tensors (the kernels
    run), then ``classify_flood``, held against the ``engine="torch"`` run
    on the same card, with every kernel's launch count checked;
 3. timing: the suite and each kernel beside its plain version and its
    bound, median of 5 runs after one warm-up, with CUDA events, and the
-   stencil's device time (torch.profiler); the jump
+   stencil's device time (torch.profiler); a torch.profiler check that the
+   in-core downslope stage's device work is one kernel, the downslope
+   walks' steps (mean, max; from the plain engine), the downslope kernel
+   on the 100-step ramp; the jump
    walk on the basin, the north rivers (walks of 0 to 100 steps), the
    lateral channel and the serpentine: its time (CUDA events), its phase 1
    and rounds apart (device time by kernel from torch.profiler), R and the
@@ -42,7 +50,8 @@ Phases, each printing its own lines:
    grid; a forced truncation retry; ``tiled_classify_flood`` against
    ``classify_flood``; pass times, host<->device bytes and the tile
    kernels against their plain versions on one 4096x4096 tile's operands,
-   checked and timed, with the padded stencil's device time;
+   checked and timed, with the padded stencil's device time and a
+   torch.profiler check that the tracked downslope call is one kernel;
 5. the large-grid entry point: ``descriptor_suite(engine="cuda_blocked")``
    at the basin's shape against ``engine="torch_blocked"``; then
    ``run_suite_checkpointed(engine="cuda_blocked")`` at 8192x8192 (phase
@@ -238,6 +247,21 @@ def device_kernels_ms(fn, calls=6 * REPEATS):
     return {key: us / count / 1e3 * -(-count // calls) for key, us, count in device_events(fn, calls)}
 
 
+def one_kernel(label, fn, name, card, calls=6 * REPEATS):
+    """Fail unless all the device work of a call of ``fn`` is one launch of
+    one kernel, whose name holds ``name`` (``device_events`` of ``calls``
+    calls); print its device time a launch."""
+    events = device_events(fn, calls)
+    others = [key for key, _, _ in events if name not in key]
+    mine = [(us, n) for key, us, n in events if name in key]
+    held = sum(n for _, n in mine)
+    if others or len(mine) != 1 or not 0 < held <= calls:
+        raise AssertionError(f"{label}: device work {[(k, n) for k, _, n in events]}, not one {name} "
+                             f"launch a call")
+    print(f"device work of {label} (torch.profiler, {calls} calls): one kernel, {name}, "
+          f"{mine[0][0] / held / 1e3:.4f} ms a launch ({held} launches in the trace)  [{card}]")
+
+
 def sass_functions(lib):
     """{kernel's mangled name: [(address, SASS instruction), ...]} of a
     built library (``cuobjdump -sass``, NOPs left out)."""
@@ -313,6 +337,28 @@ def common_path_count(instructions, cells=1):
         count += weight
         stub = 0 if op == "BRA" else stub + weight
     return count / cells
+
+
+# The in-core downslope kernel the path launches (fdr uint8):
+# downslope_kernel<false, unsigned char>.
+DOWNSLOPE_SASS = "downslope_kernelILb0EhE"
+
+
+def walk_step_instructions(lib):
+    """SASS instructions of one step of the in-core downslope kernel's walk:
+    the body of its backward branch (the loop over steps)."""
+    for name, ins in sass_functions(lib).items():
+        if DOWNSLOPE_SASS in name:
+            loops = []
+            for addr, i in ins:
+                target = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", i)
+                if target and int(target.group(1), 16) < addr:
+                    loops.append(sum(1 for a, _ in ins if int(target.group(1), 16) <= a <= addr))
+            if len(loops) != 1:
+                raise AssertionError(f"{name}: {len(loops)} backward branches, expected the walk's loop")
+            print(f"sass downslope_walk: {name}: {loops[0]} instructions a step of the walk")
+            return loops[0]
+    raise AssertionError(f"no {DOWNSLOPE_SASS} kernel in {lib}")
 
 
 # The stencil kernels the path launches (fac int32), by a fragment of their
@@ -685,10 +731,11 @@ def phase_device():
             print(f"ptxas {ln.split()[-1]}: {lines[n + 1].strip()}; {lines[n + 2].split(':', 1)[-1].strip()}")
     own = stencil_instructions(lib)
     floor = stencil_floor(lib)
+    step = walk_step_instructions(lib)
     issue, sms, mhz = issue_per_ms()
     print(f"issue rate: {sms} SMs x 4 warp instructions x 32 lanes x {mhz:.0f} MHz = {issue:.4g} thread "
           f"instructions per ms")
-    return dict(own=own, floor=floor, issue=issue)
+    return dict(own=own, floor=floor, issue=issue, walk_step=step)
 
 
 def phase_kernels(dev, basin, errs):
@@ -697,7 +744,7 @@ def phase_kernels(dev, basin, errs):
     from descriptools_tpu_torch.ops import flow
     from descriptools_tpu_torch.ops.cuda import stencil as st
     from descriptools_tpu_torch.ops.cuda import walk
-    from descriptools_tpu_torch.utils.synthetic import adversarial_dem
+    from descriptools_tpu_torch.utils.synthetic import adversarial_dem, downslope_cases
 
     def stencil_case(label, dem, fac, fac_dtype=np.int32):
         dem_f = torch.as_tensor(np.asarray(dem, np.float32), device=dev)
@@ -713,18 +760,11 @@ def phase_kernels(dev, basin, errs):
     def downslope_case(label, dem, fdr, ed, max_steps):
         dem_f = torch.as_tensor(np.asarray(dem, np.float32), device=dev)
         fdr_t = torch.as_tensor(fdr, device=dev)
-        fdr_eff, z, zt0 = down.walk_inputs(dem_f, fdr_t, 12.5)
-        pk, zt = walk.downslope_walk(fdr_eff, z, zt0, ed, max_steps)
-        wpk, wzt = down.jacobi_walk(fdr_eff, z, zt0, ed, max_steps)
-        check_bitwise(f"downslope/{label}/pk", pk, wpk)
-        e = check_bitwise(f"downslope/{label}/Zt", zt, wzt)
-        e += check_bitwise(
-            f"downslope/{label}/downslope",
-            down.downslope_from_state(z, pk, zt, 12.5),
-            down.downslope_from_state(z, wpk, wzt, 12.5),
-        )
+        got = walk.downslope_walk(dem_f, fdr_t, 12.5, ed, max_steps)
+        want = down._downslope_jacobi(dem_f, fdr_t, 12.5, ed, max_steps)
+        e = check_bitwise(f"downslope/{label}", got, want)
         errs["downslope_walk"] = max(errs["downslope_walk"], e)
-        print(f"kernel downslope_walk {label:<26} matches plain bitwise (pk, Zt, downslope)")
+        print(f"kernel downslope_walk {label:<36} matches plain bitwise (downslope)")
 
     def flow_case(label, fdr, river, max_steps):
         fdr_t = torch.as_tensor(fdr, device=dev)
@@ -784,6 +824,11 @@ def phase_kernels(dev, basin, errs):
         stencil_case(f"tall north bump={bump}", dem, np.arange(dem.size).reshape(dem.shape) % 997)
         downslope_case(f"tall north bump={bump}", dem, fdr, 50.0, 600)
     downslope_case(f"tall north {ROWS}x{COLS}", *tall_north(ROWS, COLS, 37), 50.0, 5000)
+    downslope_case(f"basin {ROWS}x{COLS}, fdr int32", basin["dem"], basin["fdr"].astype(np.int32), 5.0, 5000)
+    for name, (dem, fdr, ed, max_steps) in downslope_cases().items():
+        downslope_case(f"{name}, fdr {fdr.dtype}", dem, fdr, ed, max_steps)
+        if fdr.dtype != np.uint8:  # the kernel's own validity test on int32
+            downslope_case(f"{name}, fdr int32", dem, fdr.astype(np.int32), ed, max_steps)
     flow_case("lateral channel", *lateral_channel(), 1000)
     flow_case(f"lateral channel {ROWS}x{COLS}", *lateral_channel(ROWS, COLS), 20000)
     flow_case(f"north rivers {ROWS}x{COLS}", *north_rivers(ROWS, COLS), 20000)
@@ -903,14 +948,14 @@ def phase_timing(dev, inputs, card, sass):
 
     dem, fdr, fac, river = inputs
     dem_f = dem.to(torch.float32)
-    d_ops = down.walk_inputs(dem_f, fdr, 12.5)
+    down_in = (dem_f, fdr)
     f_ops = flow.walk_inputs(fdr, river)
     stencil_in = (dem_f, fac)
     calls = {
         "stencil": (stencil_in, lambda: st.stencil(*stencil_in, 12.5, 0.1),
                     lambda: st.stencil_plain(*stencil_in, 12.5, 0.1), sass["floor"]),
-        "downslope_walk": (d_ops, lambda: walk.downslope_walk(*d_ops, 5.0, 5000),
-                           lambda: down.jacobi_walk(*d_ops, 5.0, 5000), 0),
+        "downslope_walk": (down_in, lambda: (walk.downslope_walk(*down_in, 12.5, 5.0, 5000),),
+                           lambda: (down._downslope_jacobi(*down_in, 12.5, 5.0, 5000),), 0),
         "flow_walk": (f_ops, lambda: walk.flow_walk(*f_ops, 20000),
                       lambda: flow.doubling_walk(*f_ops, 20000), 0),
     }
@@ -921,14 +966,22 @@ def phase_timing(dev, inputs, card, sass):
               f"operations {t['ops_ms']:.4f})  [{card}]")
     stencil_device_time(f"stencil {ROWS}x{COLS}", calls["stencil"][1], times["stencil"],
                         sass["own"]["stencil"], sass, card)
-    pk, _ = walk.downslope_walk(*d_ops, 5.0, 5000)
+    cfg = pipeline.PipelineConfig()
+    one_kernel(f"the in-core downslope stage {ROWS}x{COLS}",
+               lambda: pipeline._engine_downslope(dem_f, fdr, cfg, "cuda"), "downslope_kernel", card)
+    pk, _ = down.jacobi_walk(*down.walk_inputs(dem_f, fdr, 12.5), 5.0, 5000)
     _, a, b = walk.flow_walk(*f_ops, 20000)
     for name, steps in (("downslope", (pk & 0xFFFF) + (pk >> 16)), ("flow", a + b)):
         print(f"basin {name} walk steps: mean {float(steps.float().mean()):.3f}, max {int(steps.max())}")
     # The synthetic basin's walks are short; time both walks where every
     # cell walks far, at the same shape.
     dem_n, fdr_n = tall_north(ROWS, COLS, None)
-    dn = down.walk_inputs(torch.as_tensor(dem_n, device=dev), torch.as_tensor(fdr_n, device=dev), 12.5)
+    dn = (torch.as_tensor(dem_n, device=dev), torch.as_tensor(fdr_n, device=dev))
+    pk, _ = down.jacobi_walk(*down.walk_inputs(*dn, 12.5), 50.0, 5000)
+    steps = (pk & 0xFFFF) + (pk >> 16)
+    ramp_steps = int(steps.sum())
+    print(f"tall north downslope walk steps (ed 50): mean {float(steps.float().mean()):.3f}, "
+          f"max {int(steps.max())}")
     fdr_l, river_l = lateral_channel(ROWS, COLS)
     fl = flow.walk_inputs(torch.as_tensor(fdr_l, device=dev), torch.as_tensor(river_l, device=dev))
     fs = flow.walk_inputs(*(torch.as_tensor(t, device=dev) for t in serpentine()))
@@ -940,18 +993,19 @@ def phase_timing(dev, inputs, card, sass):
         "serpentine 200x200 (one 40000-step path), cap 60000": (fs, 60000),
     }
     jump_profile(jump_cases, card)
-    long_walks = {
-        "downslope_walk, tall north (100-step walks), ed 50": (
-            median_ms(lambda: walk.downslope_walk(*dn, 50.0, 5000)),
-            median_ms(lambda: down.jacobi_walk(*dn, 50.0, 5000)),
-        ),
-    }
+    ramp = timed(dn, lambda: (walk.downslope_walk(*dn, 12.5, 50.0, 5000),),
+                 lambda: (down._downslope_jacobi(*dn, 12.5, 50.0, 5000),))
     # fold_walk sweeps 40000 times on the serpentine, a host read each: its
     # plain time there is one run.
     fold_profile({label: (ops, cap, 1 if cap > 20000 else REPEATS)
                   for label, (ops, cap) in jump_cases.items()}, card)
-    for name, (ms, plain_ms) in long_walks.items():
-        print(f"time {name} {ROWS}x{COLS}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
+    print(f"time downslope_walk, tall north (100-step walks), ed 50 {ROWS}x{COLS}: kernel {ramp['ms']:.3f} "
+          f"ms, plain {ramp['plain_ms']:.3f} ms, bound {ramp['bound_ms']:.4f} ms ({ramp['bound_by']})  [{card}]")
+    # Every start walks: the walk's loop, issued at the card's rate, is
+    # most of the kernel (an issue efficiency, not a bound).
+    issue_ms = sass["walk_step"] * ramp_steps / sass["issue"]
+    print(f"downslope_walk on the ramp: {ramp_steps} steps x {sass['walk_step']} instructions at the issue "
+          f"rate take {issue_ms:.4f} ms: issued at {100 * issue_ms / ramp['ms']:.1f} % of the event time  [{card}]")
     suite_ms = median_ms(lambda: pipeline.descriptor_suite(*inputs, pipeline.PipelineConfig()))
     plain_ms = median_ms(
         lambda: pipeline.descriptor_suite(*inputs, pipeline.PipelineConfig(engine="torch"))
@@ -972,7 +1026,7 @@ def phase_tile_kernels(dev, basin, errs):
     from descriptools_tpu_torch.ops.cuda import stencil as st
     from descriptools_tpu_torch.ops.cuda import walk
     from descriptools_tpu_torch.parallel import boundary
-    from descriptools_tpu_torch.utils.synthetic import adversarial_dem
+    from descriptools_tpu_torch.utils.synthetic import adversarial_dem, downslope_cases
 
     def stencil_case(label, padded, fac):
         got = st.stencil_padded(padded, fac, 12.5, 0.1)
@@ -1043,25 +1097,22 @@ def phase_tile_kernels(dev, basin, errs):
     print(f"kernel absorbing_walk {'serpentine 200x200, one tile':<34} matches plain bitwise (code, a, b)")
 
     def tracked_case(label, dem, fdr, origin, grid, ed, max_steps, must_fire):
+        """The window's interior at halos 0 and 8 against the plain
+        composition (trunc_cells, the tracked walk, the interior)."""
         d = torch.as_tensor(np.asarray(dem, np.float32), device=dev).contiguous()
         f = torch.as_tensor(np.asarray(fdr), device=dev).contiguous()
-        tr0 = down.trunc_cells(d, f, *origin, *grid)
-        ops = down.walk_inputs(d, f, 12.5)
-        got = walk.downslope_walk_tracked(*ops, ed, max_steps, tr0)
-        want = down.jacobi_walk(*ops, ed, max_steps, tr0)
-        for name, g, wnt in zip(("pk", "Zt", "trunc"), got, want):
-            check_bitwise(f"tracked/{label}/{name}", g, wnt)
-        e = check_bitwise(
-            f"tracked/{label}/downslope",
-            down.downslope_from_state(ops[1], got[0], got[1], 12.5),
-            down.downslope_from_state(ops[1], want[0], want[1], 12.5),
-        )
-        errs["downslope_walk_tracked"] = max(errs["downslope_walk_tracked"], e)
-        flagged = int(got[2].sum())
-        if must_fire and flagged == 0:
+        flagged = []
+        for halo in (0, 8):
+            got = walk.downslope_walk_tracked(d, f, 12.5, ed, max_steps, *origin, *grid, halo)
+            want = down.downslope_window(d, f, 12.5, ed, max_steps, *origin, *grid, halo)
+            e = check_bitwise(f"tracked/{label}/halo {halo}/downslope", got[0], want[0])
+            check_bitwise(f"tracked/{label}/halo {halo}/trunc", got[1], want[1])
+            errs["downslope_walk_tracked"] = max(errs["downslope_walk_tracked"], e)
+            flagged.append(int(got[1].sum()))
+        if must_fire and flagged[0] == 0:
             raise AssertionError(f"tracked/{label}: no truncation flag fired")
-        print(f"kernel downslope_walk_tracked {label:<30} matches plain bitwise (pk, Zt, trunc, downslope); "
-              f"{flagged} flagged")
+        print(f"kernel downslope_walk_tracked {label:<36} matches plain bitwise (downslope, trunc) at halos "
+              f"0 and 8; {flagged} flagged")
 
     for bump in (None, 40):
         dem, fdr = flat_east(512, 2048, bump)
@@ -1071,6 +1122,15 @@ def phase_tile_kernels(dev, basin, errs):
     dem, fdr = tall_north(ROWS, COLS, 37)
     tracked_case("tall north rows 1000-1512", dem[1000:1512], fdr[1000:1512], (1000, 0), (ROWS, COLS),
                  50.0, 5000, True)
+    cases = downslope_cases()
+    dem, fdr, _, _ = cases["fdr_int16"]
+    tracked_case("adversarial 40x56, fdr int16", np.round(dem), fdr, (0, 9), (40, 86), 5.0, 200, True)
+    tracked_case("adversarial 40x56, fdr int32", np.round(dem), fdr.astype(np.int32), (0, 9), (40, 86),
+                 5.0, 200, True)
+    dem, fdr, _, _ = cases["fractional_terminal_stops"]
+    tracked_case("fractional 40x56, east edge cut", dem, fdr, (0, 0), (40, 112), 50.0, 5000, True)
+    dem, fdr, _, _ = cases["terminal_holds_still"]
+    tracked_case("terminal holds still 40x56", dem, fdr, (3, 0), (50, 56), 5.0, 30, False)
     torch.cuda.synchronize()
 
 
@@ -1147,9 +1207,8 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs, sass):
     halo = 64
     ext = np.s_[lo - halo : hi + halo, lo - halo : hi + halo]
     d_ext, f_ext = dem_f[ext].contiguous(), fdr[ext].contiguous()
-    tr0 = down.trunc_cells(d_ext, f_ext, lo - halo, lo - halo, BIG, BIG)
-    d_ops = down.walk_inputs(d_ext, f_ext, cfg.px)
     ed, down_steps, flow_steps = cfg.elevation_difference, cfg.downslope_max_steps, cfg.flow_max_steps
+    window = (cfg.px, ed, down_steps, lo - halo, lo - halo, BIG, BIG, halo)
     pairs = {
         "stencil_padded": (
             (padded, fac_t),
@@ -1166,11 +1225,11 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs, sass):
             ("code", "a", "b"),
         ),
         "downslope_walk_tracked": (
-            (*d_ops, tr0),
-            lambda: walk.downslope_walk_tracked(*d_ops, ed, down_steps, tr0),
-            lambda: down.jacobi_walk(*d_ops, ed, down_steps, tr0),
+            (d_ext, f_ext),
+            lambda: walk.downslope_walk_tracked(d_ext, f_ext, *window),
+            lambda: down.downslope_window(d_ext, f_ext, *window),
             0,
-            ("pk", "Zt", "trunc"),
+            ("downslope", "trunc"),
         ),
     }
     for kernel, (_, fn, plain, _, names) in pairs.items():
@@ -1191,7 +1250,13 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs, sass):
               f"operations {t['ops_ms']:.4f})  [{card}]")
     stencil_device_time(f"stencil_padded one {TILE}x{TILE} tile", pairs["stencil_padded"][1],
                         times["stencil_padded"], sass["own"]["stencil_padded"], sass, card)
-    del pairs, inputs, dem, fdr, fac, river, dem_f, padded, loc, d_ext, f_ext, tr0, d_ops
+    one_kernel(f"downslope_walk_tracked on one {TILE + 2 * halo}x{TILE + 2 * halo} window",
+               pairs["downslope_walk_tracked"][1], "downslope_kernel", card)
+    pk, _ = down.jacobi_walk(*down.walk_inputs(d_ext, f_ext, cfg.px), ed, down_steps)
+    steps = ((pk & 0xFFFF) + (pk >> 16))[halo:-halo, halo:-halo]
+    print(f"tile window downslope walk steps (interior): mean {float(steps.float().mean()):.3f}, "
+          f"max {int(steps.max())}")
+    del pairs, inputs, dem, fdr, fac, river, dem_f, padded, loc, d_ext, f_ext, pk, steps
     torch.cuda.empty_cache()
 
     # Streaming calibration at full size (host numpy), alone.

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's flow walks, stencils and suite in several checkouts, in one call.
+"""Time the port's walks, stencils and suite in several checkouts, in one call.
 
     python3 compare_walks.py OLD NEW NEW OLD    # each the root of a checkout
+    python3 compare_walks.py --downslope A B ...  # the downslope stage alone
 
 One process per argument, run one after another in the order given, so a
 checkout's numbers can be set beside another's taken on the same card.
@@ -22,19 +23,39 @@ generators), the same in every process.  Each process times, on one card:
   time (torch.profiler: the stencil kernel alone and all the call's device
   work), a sha256 of the four rasters, and the SASS instructions of the
   checkout's stencil kernels;
+- the downslope stage: in core (``ops.cuda.walk.downslope_cuda``) on the
+  synthetic basin and on the 100-step ramp (tall north, ed 50, cap 5000),
+  and tracked on tile (0, 0)'s 4224x4224 window of the 8192x8192 grid (as
+  the tiled path composes it: the interior's downslope and flags, then
+  ``.any()``): event time, device time (torch.profiler: all the call's
+  device work, by kernel), a sha256 of the downslope and flag rasters.  A
+  checkout whose ``downslope_walk`` takes the walk operands (before the
+  fused kernel) is composed as its own ``downslope_cuda`` and tiled path
+  compose it;
+- the in-core suite's stages on the synthetic basin, each alone (stencil;
+  downslope, and for an operand-level checkout its ``walk_inputs``, kernel
+  and post-pass apart; the flow walk's ``walk_inputs``, kernel and
+  post-pass; HAND and river fac; GFI and ln(hl/H));
 - ``descriptor_suite`` on the synthetic basin, default configuration and
-  ``engine="cuda_blocked"`` (with the latter's peak device memory);
+  ``engine="cuda_blocked"`` (with the latter's peak device memory), and the
+  default suite on tile (0, 0)'s 4096x4096 inputs with its peak device
+  memory;
+
+With ``--downslope`` each process times the downslope stage alone (a
+sweep of kernel variants: copies of ``descriptools_tpu_torch`` with
+``csrc/walk.cu`` edited).
 
 each count walk held bitwise against ``doubling_walk`` and each fold walk
 against ``fold_walk``, each time the median of
 20 CUDA-event runs after a warm-up.  Every process prints its numbers, and
-whether the stencils' rasters are identical in every checkout; the last
-line is one JSON object with all of them and the card's name and power
-limit.
+whether the stencils' and the downslope's rasters are identical in every
+checkout; the last line is one JSON object with all of them and the card's
+name and power limit.
 """
 
 import hashlib
 import importlib.util
+import inspect
 import json
 import os
 import statistics
@@ -61,7 +82,7 @@ def median_ms(torch, fn):
     return statistics.median(times)
 
 
-def one(tree):
+def one(tree, only_downslope=False):
     """Time the checkout at ``tree``; print its numbers as one JSON line."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -86,6 +107,11 @@ def one(tree):
     dev = torch.device("cuda", 0)
     basin = cs.basin_inputs()
     inputs = pipeline.inputs_to_torch(basin["dem"], basin["fdr"], basin["fac"], basin["river"], dev)
+    if only_downslope:
+        downslope, stages = downslope_and_stages(torch, cs, dev, inputs, windowed_basin(cs.BIG, cs.BIG, seed=0))
+        print(json.dumps({"tree": tree, "package": package, "downslope": downslope, "stages_ms": stages,
+                          "walk_step_sass": walk_step_sass(cs, build)}))
+        return
     on_dev = lambda arrays: flow.walk_inputs(*(torch.as_tensor(a, device=dev) for a in arrays))
     cases = {
         "flow_walk basin": (walk.flow_walk, flow.walk_inputs(inputs[1], inputs[3])),
@@ -130,6 +156,7 @@ def one(tree):
         device[label] = dict(kernel=sum(kernel) if kernel else None, call=sum(by_kernel.values()),
                              by_kernel=by_kernel)
     del padded, fac_tile
+    downslope, stages = downslope_and_stages(torch, cs, dev, inputs, loaders)
     cfg = pipeline.PipelineConfig()
     ms["descriptor_suite basin"] = median_ms(torch, lambda: pipeline.descriptor_suite(*inputs, cfg))
     blocked = pipeline.PipelineConfig(engine="cuda_blocked")
@@ -140,6 +167,16 @@ def one(tree):
     pipeline.descriptor_suite(*inputs, blocked)
     torch.cuda.synchronize()
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+    # The default suite on tile (0, 0)'s 4096x4096 inputs, and its peak.
+    big = pipeline.inputs_to_torch(*(loaders[k](0, cs.TILE, 0, cs.TILE) for k in ("dem", "fdr", "fac", "river")),
+                                   dev)
+    ms["descriptor_suite 4096x4096"] = median_ms(torch, lambda: pipeline.descriptor_suite(*big, cfg))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pipeline.descriptor_suite(*big, cfg)
+    torch.cuda.synchronize()
+    peak_4096_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+    del big
     # B of a tree with the jump walk; None for one with the serial walk.
     bound = walk.jump_bound() if hasattr(walk, "jump_bound") else None
     lib = build.build()[0]
@@ -148,21 +185,115 @@ def one(tree):
             for name, ins in cs.sass_functions(lib).items() if "stencil" in name}
     print(json.dumps({"tree": tree, "package": package, "B": bound, "ms": ms,
                       "stencil_device_ms": device, "stencil_sha256": sha, "stencil_sass": sass,
-                      "cuda_blocked_suite_peak_MiB": peak_mib}))
+                      "downslope": downslope, "stages_ms": stages, "walk_step_sass": walk_step_sass(cs, build),
+                      "cuda_blocked_suite_peak_MiB": peak_mib, "suite_4096_peak_MiB": peak_4096_mib}))
 
 
-def main(trees):
+def walk_step_sass(cs, build):
+    """SASS instructions a step of the checkout's fused downslope kernel
+    (``chip_smoke.walk_step_instructions``), None for a checkout without
+    it."""
+    lib = build.build()[0]
+    if not any(cs.DOWNSLOPE_SASS in name for name in cs.sass_functions(lib)):
+        return None
+    return cs.walk_step_instructions(lib)
+
+
+def downslope_and_stages(torch, cs, dev, inputs, loaders):
+    """The downslope stage in core (basin, ramp) and tracked (tile (0, 0)'s
+    window), each {event ms, device ms, device activities, the walk kernel's
+    device ms, sha256}; then the in-core suite's stages on the basin,
+    {stage: event ms}."""
+    from descriptools_tpu_torch import pipeline, tiled
+    from descriptools_tpu_torch.ops import downslope as down
+    from descriptools_tpu_torch.ops import flow
+    from descriptools_tpu_torch.ops.cuda import walk
+
+    # Before the fused kernel, downslope_walk took (fdr_eff, z, zt0, ...).
+    fused = "dem_f" in inspect.signature(walk.downslope_walk).parameters
+    px, ed, steps = 12.5, 5.0, 5000
+    dem, fdr, fac, river = inputs
+    dem_f = dem.to(torch.float32).contiguous()
+    ramp = tuple(torch.as_tensor(a, device=dev) for a in cs.tall_north(cs.ROWS, cs.COLS, None))
+    halo, big = 64, (cs.BIG, cs.BIG)
+    d_ext = torch.as_tensor(tiled.load_window(loaders["dem"], 0, cs.TILE, 0, cs.TILE, big, -100,
+                                              np.asarray(loaders["dem"](0, 1, 0, 1)).dtype, halo=halo),
+                            device=dev).to(torch.float32)
+    f_ext = torch.as_tensor(tiled.load_window(loaders["fdr"], 0, cs.TILE, 0, cs.TILE, big, 0, np.uint8,
+                                              halo=halo), device=dev)
+    window = (px, ed, steps, -halo, -halo, *big, halo)
+
+    def tracked():
+        if fused:
+            dn, tr = walk.downslope_walk_tracked(d_ext, f_ext, *window)
+        else:  # the parent's tiled._downslope_ext
+            tr0 = down.trunc_cells(d_ext, f_ext, -halo, -halo, *big)
+            fdr_eff, z, zt0 = down.walk_inputs(d_ext, f_ext, px)
+            pk, zt, tr = walk.downslope_walk_tracked(fdr_eff, z, zt0, ed, steps, tr0)
+            dn = down.downslope_from_state(z, pk, zt, px)
+            dn, tr = dn[halo:-halo, halo:-halo], tr[halo:-halo, halo:-halo]
+        return dn, tr, tr.any()
+
+    calls = {
+        "basin": lambda: (walk.downslope_cuda(dem_f, fdr, px, ed, steps),),
+        "ramp (tall north, ed 50)": lambda: (walk.downslope_cuda(*ramp, px, 50.0, steps),),
+        "tracked 4224x4224 window of tile (0, 0)": tracked,
+    }
+    out = {}
+    for label, call in calls.items():
+        rasters = call()[:2]
+        by_kernel = cs.device_kernels_ms(call)
+        walk_ms = sum(v for k, v in by_kernel.items() if "downslope" in k)
+        out[label] = dict(event_ms=median_ms(torch, call), device_ms=sum(by_kernel.values()),
+                          kernels=len(by_kernel), walk_kernel_ms=walk_ms,
+                          sha256=hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in rasters)).hexdigest())
+    del d_ext, f_ext
+    # The in-core suite's stages, each alone.
+    cfg = pipeline.PipelineConfig()
+    f_ops = flow.walk_inputs(fdr, river)
+    state = walk.flow_walk(*f_ops, cfg.flow_max_steps)
+    _, indices = flow.flow_from_state(*state, px, cfg.flow_max_steps)
+    hand, river_fac = flow.hand_and_river_fac(dem, fac, indices)
+    stages = {
+        "stencil": lambda: pipeline._engine_stencil(dem_f, fac, cfg, "cuda"),
+        "downslope": lambda: pipeline._engine_downslope(dem_f, fdr, cfg, "cuda"),
+    }
+    if not fused:
+        d_ops = down.walk_inputs(dem_f, fdr, px)
+        pk, zt = walk.downslope_walk(*d_ops, ed, steps)
+        stages.update({
+            "downslope walk_inputs": lambda: down.walk_inputs(dem_f, fdr, px),
+            "downslope kernel": lambda: walk.downslope_walk(*d_ops, ed, steps),
+            "downslope post-pass": lambda: down.downslope_from_state(d_ops[1], pk, zt, px),
+        })
+    stages.update({
+        "flow walk_inputs": lambda: flow.walk_inputs(fdr, river),
+        "flow kernel": lambda: walk.flow_walk(*f_ops, cfg.flow_max_steps),
+        "flow post-pass": lambda: flow.flow_from_state(*state, px, cfg.flow_max_steps),
+        "HAND + river fac": lambda: flow.hand_and_river_fac(dem, fac, indices),
+        "GFI + ln(hl/H)": lambda: (pipeline._gfi(hand, river_fac, cfg.n_gfi, cfg.b_gfi, px),
+                                   pipeline.ln_hl_h(hand, fac, cfg.n_gfi, cfg.b_gfi, px)),
+        "suite": lambda: pipeline.descriptor_suite(*inputs, cfg),
+    })
+    return out, {name: median_ms(torch, fn) for name, fn in stages.items()}
+
+
+def main(trees, only_downslope=False):
     import chip_smoke as cs
 
     runs = []
     for tree in trees:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
+        flags = ["--one-downslope" if only_downslope else "--one", tree]
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), *flags],
                              capture_output=True, text=True)
         sys.stderr.write(out.stderr[-4000:])
         if out.returncode != 0:
             raise SystemExit(f"compare_walks: {tree} failed ({out.returncode})")
         run = json.loads(out.stdout.strip().splitlines()[-1])
         runs.append(run)
+        print_downslope(tree, run)
+        if only_downslope:
+            continue
         print(f"{tree} (B {run['B']}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in run["ms"].items())
               + f"; cuda_blocked suite peak {run['cuda_blocked_suite_peak_MiB']:.3f} MiB")
         for label, dev in run["stencil_device_ms"].items():
@@ -174,17 +305,33 @@ def main(trees):
         print(f"{tree} stencil SASS instructions (common path a cell; entry to first EXIT, all): "
               + ", ".join(f"{k} {v['per_cell']:.2f}; {v['main']}, {v['total']}"
                           for k, v in run["stencil_sass"].items()))
-    for label in runs[0]["stencil_sha256"]:
+        print(f"{tree} suite 4096x4096 {run['ms']['descriptor_suite 4096x4096']:.4f} ms, peak "
+              f"{run['suite_4096_peak_MiB']:.3f} MiB")
+    for label in [] if only_downslope else runs[0]["stencil_sha256"]:
         same = len({run["stencil_sha256"][label] for run in runs}) == 1
         print(f"{label}: the four rasters are {'identical' if same else 'NOT identical'} in every checkout")
+    for label in runs[0]["downslope"]:
+        same = len({run["downslope"][label]["sha256"] for run in runs}) == 1
+        print(f"downslope {label}: the rasters are {'identical' if same else 'NOT identical'} in every checkout")
     card = cs.card_line()
     print(card)
     print(json.dumps({"card": card, "repeats": REPEATS, "runs": runs}))
 
 
+def print_downslope(tree, run):
+    for label, row in run["downslope"].items():
+        print(f"{tree} downslope {label}: event {row['event_ms']:.4f} ms, device {row['device_ms']:.4f} ms "
+              f"in {row['kernels']} device activities, {row['walk_kernel_ms']:.4f} ms of it in the walk "
+              f"kernel; rasters sha256 {row['sha256']}")
+    print(f"{tree} stages (basin, event ms): " + ", ".join(f"{k} {v:.4f}" for k, v in run["stages_ms"].items()))
+    print(f"{tree} downslope walk: {run['walk_step_sass']} SASS instructions a step")
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--one"]:
-        one(sys.argv[2])
+    if sys.argv[1:2] in (["--one"], ["--one-downslope"]):
+        one(sys.argv[2], only_downslope=sys.argv[1] == "--one-downslope")
+    elif sys.argv[1:2] == ["--downslope"] and len(sys.argv) > 2:
+        main(sys.argv[2:], only_downslope=True)
     elif len(sys.argv) > 1:
         main(sys.argv[1:])
     else:

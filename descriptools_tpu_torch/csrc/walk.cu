@@ -1,8 +1,9 @@
 // The D8 walks of the descriptor suite.
 //
-// downslope_walk_kernel<false> replaces
+// downslope_kernel<false, Fdr> (entry launch_downslope) replaces
 //   descriptools_tpu/ops/pallas/walk_vmem.py::_downslope_kernel
-// downslope_walk_kernel<true> (truncation tracking) replaces
+// downslope_kernel<true, Fdr> (truncation tracking, entry
+// launch_downslope_tracked) replaces
 //   descriptools_tpu/ops/pallas/walk.py::_downslope_kernel and the trunc0
 //   mode of walk_vmem.py::_downslope_kernel
 // The jump walk (jump_start_kernel, then jump_round_kernel), launched as
@@ -15,18 +16,56 @@
 // The TPU kernels advance every cell's walk one step per whole-grid sweep
 // (vector selects over VMEM-resident bands), because the TPU has no cheap
 // per-lane gather.  A Hopper thread can follow a pointer.  The downslope
-// walks take one start cell per thread and follow its D8 path to its stop,
-// the reference toolbox's own design: the first cell whose encoded
+// kernel takes one start cell per thread and follows its D8 path to its
+// stop, the reference toolbox's own design: the first cell whose encoded
 // elevation Zt is at or below the start's z - ed (the Jacobi lookahead's
-// first hit, for any fdr, monotone or not).  Their stops depend on the
+// first hit, for any fdr, monotone or not).  Its stops depend on the
 // start's own threshold, so a walk cannot reuse another's result.  One
 // kernel serves every grid size: there is no VMEM tier, so the TPU's
 // VMEM-resident and HBM-blocked kernels of one walk have one counterpart.
 //
-// Downslope bound: dependent loads.  Each step reads the current cell's
-// direction and its successor's state (8 B, scattered), and the next step
-// waits on them; a warp runs as long as its longest walk.  Neighbouring
-// start cells share most of their path, so the reads mostly hit L1/L2.
+// The downslope kernel: the whole downslope stage in one launch, from the
+// raw rasters (dem as float32, fdr as uint8 or int32, read in its own type)
+// to the downslope raster and, tracked, the truncation flag.
+//   Bound: 9 B a cell (dem 4, fdr 1, downslope 4), 10 B a tracked interior
+//   cell with the flag, each read or written once.
+//   What held the operand-level kernel back: the stage built three operands
+//   (fdr_eff, z, zt0; 12 B a cell) in some 40 torch launches and formed the
+//   ratio in a torch post-pass, about 20x the walk's own time; and each step
+//   waited on two loads, one after the other (fdr_eff at the cell, then zt0
+//   at its successor).
+//   The design:
+//   - the terminal test formed on the fly (ops/downslope.py::
+//     _terminal_and_step): p is terminal where its code is not one of the
+//     8, its target lies outside the grid (tracked: the window), or z is
+//     -100 at p or at its target; zt0(p) = z(p) - 2^20 there (one f32
+//     subtraction: it rounds fractional elevations to 1/16, as every
+//     engine does), z(p) elsewhere;
+//   - one dependent load round a step: at p, with p's code decoded, the
+//     thread loads z and fdr of p's successor together; that completes p's
+//     terminal test and is the next step's operand;
+//   - a branch-free decode (d8_decode): a table indexed by the code's bit,
+//     with a test that the code is one of the 8;
+//   - the post-pass in ops/downslope.py::downslope_from_state's order,
+//     separate multiplies and an add (built with -fmad=false) and an IEEE
+//     division, so the raster is bitwise the plain version's;
+//   - a 2-D thread map, 32 columns x 8 rows a block: a warp starts on 32
+//     neighbouring cells of a row and its successors fall in the block's
+//     own rows +-1;
+//   - tracked, only the window's interior is launched (the walk may read
+//     the whole window) and the outputs are tile-sized; the flag is read at
+//     the stop cell (ops/downslope.py::trunc_cells there, and "stopped at a
+//     terminal").
+//   Its work still follows the walks' lengths: a warp runs as long as its
+//   longest walk.  Where every start walks far, instruction issue bounds
+//   it, not the loads' latency (a 100-step ramp at 2178 x 1534 on an H100:
+//   43 SASS instructions a step, issued at about 86 % of the card's rate),
+//   so the loop is kept short: the row is tracked for the flag alone, a
+//   cell reached by a step is never NoData (its predecessor was not
+//   terminal), and the walk counts its steps and its diagonal steps and
+//   packs them once, at the end.  Staging a block's tile in shared memory
+//   and a step table in the kernel's parameters (indexed per lane, so
+//   divergent on real terrain) were slower on the basin.
 //
 // The jump walk (flow and absorbing walks): every cell's absorber (the
 // first absorbing cell on its path) and its cardinal and diagonal step
@@ -62,10 +101,10 @@
 //   spread over the basin and the lateral channel, and 16 and 128 slower
 //   (PERF.md); a sweep rebuilds with another value.
 //
-// Inputs are the walk operands built by the PyTorch wrappers
-// (descriptools_tpu_torch/ops/cuda/walk.py): fdr_eff is 0 at every cell
-// that stops a walk (terminal / absorbing), and every non-zero fdr_eff is
-// a valid D8 code whose step stays inside the grid.
+// The jump walk's inputs are the walk operands built by the PyTorch
+// wrappers (descriptools_tpu_torch/ops/flow.py::walk_inputs): fdr_eff is 0
+// at every absorbing cell, and every non-zero fdr_eff is a valid D8 code
+// whose step stays inside the grid.
 
 #include <climits>
 
@@ -79,7 +118,11 @@ namespace {
 
 constexpr int kIncDiag = 1 << 16;  // packed count: diagonal steps in bits 16-31
 // Terminals are encoded as Zt = z - 2^20, so Zt < -2^19 marks a terminal.
+constexpr float kOff = 1048576.0f;
 constexpr float kHalf = 524288.0f;
+constexpr float kNoData = -100.0f;
+constexpr int kBlockX = 32;  // a downslope block's columns: one warp along a row
+constexpr int kBlockY = 8;   // a downslope block's rows
 
 __device__ __forceinline__ bool cell_of_thread(int rows, int cols, int& idx) {
   const long long cell = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -87,47 +130,123 @@ __device__ __forceinline__ bool cell_of_thread(int rows, int cols, int& idx) {
   return cell < static_cast<long long>(rows) * cols;
 }
 
-// Downslope: walk until zt0[cur] <= z0 - ed, or max_steps steps.  Writes the
-// stop state (pk = packed cardinal/diagonal counts, Zt = zt0 at the stop).
-// kTrack: also writes trunc = 1 where the walk stopped at a terminal that
-// trunc0 marks (a block edge cut it).  The serial walk knows its stop cell,
-// so the flag is read there directly: exact for fractional elevations too,
-// where the TPU tiers' second Zt offset is exact only for integers.  A
-// start that is itself a terminal stops at once and carries its own flag;
-// a walk cut by the cap is exact and is not flagged.
-template <bool kTrack>
-__global__ void downslope_walk_kernel(const int* __restrict__ fdr_eff,
-                                      const float* __restrict__ z,
-                                      const float* __restrict__ zt0,
-                                      const unsigned char* __restrict__ trunc0,
-                                      int* __restrict__ pk_out,
-                                      float* __restrict__ zt_out,
-                                      unsigned char* __restrict__ trunc_out,
-                                      int rows, int cols, float ed, int max_steps) {
-  int idx;
-  if (!cell_of_thread(rows, cols, idx)) return;
-  const float thresh = z[idx] - ed;
-  float zt = zt0[idx];
-  int pk = 0;
-  int cur = idx;
+// The raster a downslope launch walks and the start cells it takes.
+struct DownslopeGeometry {
+  int win_rows, win_cols;    // the raster read: the grid, or a tile's window
+  int rows, cols;            // the start cells: [halo, halo + rows) x [halo, halo + cols)
+  int halo;
+  int row0, col0;            // tracked: the raster's origin in the global grid
+  int grid_rows, grid_cols;  // tracked: the global grid's shape
+};
+
+// Downslope: from each start, walk until Zt <= z0 - ed at the cell
+// reached, or to a terminal that holds still, or max_steps steps; then the
+// ratio (z0 - z at the stop) / path length, 0 for a walk of no step, -100
+// where z0 is NoData.  kTrack: also the flag of a walk that stopped at a
+// terminal that only the window's edge made.  The serial walk knows its
+// stop cell, so the flag is read there directly: exact for fractional
+// elevations too, where the TPU tiers' second Zt offset is exact only for
+// integers.  A start that is itself such a terminal stops at once and
+// carries its own flag; a walk cut by the cap is exact and is not flagged.
+template <bool kTrack, typename Fdr>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+downslope_kernel(const float* __restrict__ z, const Fdr* __restrict__ fdr,
+                 float* __restrict__ out, unsigned char* __restrict__ trunc,
+                 DownslopeGeometry g, float ed, int max_steps, float c_card,
+                 float c_diag) {
+  const int j = blockIdx.x * kBlockX + threadIdx.x;
+  const int i = blockIdx.y * kBlockY + threadIdx.y;
+  if (i >= g.rows || j >= g.cols) return;
+  const unsigned cols = static_cast<unsigned>(g.win_cols);
+  const unsigned n = static_cast<unsigned>(g.win_rows) * cols;
+  int r = i + g.halo, c = j + g.halo;
+  int cur = r * g.win_cols + c;
+  const float z0 = z[cur];
+  const float thresh = z0 - ed;
+  float zc = z0;
+  // The cell's step: its target lies inside the raster where the code is
+  // valid and the target's column and flat index are inside (then its row
+  // is too).  z and fdr of the target are loaded together.
+  int dy, dx;
+  bool diag;
+  bool valid = d8_decode(static_cast<int>(fdr[cur]), dy, dx, diag);
+  int next = cur + dy * g.win_cols + dx;
+  bool inside = valid && static_cast<unsigned>(c + dx) < cols && static_cast<unsigned>(next) < n;
+  float zn = 0.0f;
+  int fn = 0;
+  if (inside) {
+    zn = z[next];
+    fn = static_cast<int>(fdr[next]);
+  }
+  bool terminal = !inside || zn == kNoData || zc == kNoData;
+  float zt = terminal ? zc - kOff : zc;
+  int steps = 0, diags = 0;
   if (!(zt <= thresh)) {  // a terminal start cell stops at once, pk = 0
-    for (int s = 0; s < max_steps; ++s) {
-      int dy, dx;
-      bool diag;
-      // A terminal that did not stop the walk holds still for good: the
-      // lookahead's state would stay (pk, Zt) to the cap.
-      if (!d8_step(fdr_eff[cur], dy, dx, diag)) break;
-      pk += diag ? kIncDiag : 1;
-      cur += dy * cols + dx;
-      zt = zt0[cur];
+    // A terminal that did not stop the walk holds still for good: the
+    // lookahead's state would stay (pk, Zt) to the cap.
+    while (steps < max_steps && !terminal) {
+      ++steps;
+      diags += diag;
+      r += dy;  // the row serves the flag alone
+      c += dx;
+      cur = next;
+      zc = zn;  // never NoData: the cell left was not terminal
+      valid = d8_decode(fn, dy, dx, diag);
+      next = cur + dy * g.win_cols + dx;
+      inside = valid && static_cast<unsigned>(c + dx) < cols && static_cast<unsigned>(next) < n;
+      if (inside) {
+        zn = z[next];
+        fn = static_cast<int>(fdr[next]);
+      }
+      terminal = !inside || zn == kNoData;
+      zt = terminal ? zc - kOff : zc;
       if (zt <= thresh) break;
     }
   }
-  pk_out[idx] = pk;
-  zt_out[idx] = zt;
+  // The packed counts (the diagonal count in bits 16-31, as repeated
+  // additions of 2^16 would leave it).
+  const int pk = static_cast<int>(static_cast<unsigned>(steps - diags) +
+                                  static_cast<unsigned>(diags) * kIncDiag);
+  // ops/downslope.py::downslope_from_state, in its order.
+  const float z_at = zt < -kHalf ? __fadd_rn(zt, kOff) : zt;
+  const float dist = __fadd_rn(__fmul_rn(static_cast<float>(pk & 0xFFFF), c_card),
+                               __fmul_rn(static_cast<float>(pk >> 16), c_diag));
+  const float down = pk == 0 ? 0.0f : __fdiv_rn(__fsub_rn(z0, z_at), dist);
+  const int o = i * g.cols + j;
+  out[o] = z0 == kNoData ? kNoData : down;
   if constexpr (kTrack) {
-    trunc_out[idx] = (zt <= thresh && zt < -kHalf && trunc0[cur] != 0) ? 1 : 0;
+    // trunc_cells at the stop cell: a valid step that leaves the window
+    // and stays inside the grid, from a cell that is not NoData.
+    const bool in_grid =
+        static_cast<unsigned>(r + dy + g.row0) < static_cast<unsigned>(g.grid_rows) &&
+        static_cast<unsigned>(c + dx + g.col0) < static_cast<unsigned>(g.grid_cols);
+    const bool cut = valid && !inside && in_grid && zc != kNoData;
+    trunc[o] = (zt <= thresh && zt < -kHalf && cut) ? 1 : 0;
   }
+}
+
+template <bool kTrack>
+int launch_downslope_kernel(const float* z, const void* fdr, int fdr_is_int32, float* out,
+                            unsigned char* trunc, const DownslopeGeometry& g, float ed,
+                            int max_steps, float c_card, float c_diag, void* stream) {
+  if (g.rows <= 0 || g.cols <= 0) return 0;
+  // Offsets are int: the raster and the row a step may leave it by must
+  // hold fewer than 2^31 cells.
+  if (static_cast<long long>(g.win_rows + 1) * g.win_cols >= (1LL << 31)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid((g.cols + kBlockX - 1) / kBlockX, (g.rows + kBlockY - 1) / kBlockY);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const dim3 block(kBlockX, kBlockY);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (fdr_is_int32) {
+    downslope_kernel<kTrack, int><<<grid, block, 0, s>>>(
+        z, static_cast<const int*>(fdr), out, trunc, g, ed, max_steps, c_card, c_diag);
+  } else {
+    downslope_kernel<kTrack, unsigned char><<<grid, block, 0, s>>>(
+        z, static_cast<const unsigned char*>(fdr), out, trunc, g, ed, max_steps, c_card, c_diag);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The jump walk's result for each cell: the absorber's code and the
@@ -260,28 +379,30 @@ int round_blocks(int& blocks) {
 
 }  // namespace
 
-extern "C" int launch_downslope_walk(const int* fdr_eff, const float* z,
-                                     const float* zt0, int* pk, float* zt,
-                                     int rows, int cols, float ed, int max_steps,
-                                     void* stream) {
-  const unsigned blocks = blocks_for(rows, cols, kThreads);
-  if (blocks == 0) return 0;
-  downslope_walk_kernel<false><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      fdr_eff, z, zt0, nullptr, pk, zt, nullptr, rows, cols, ed, max_steps);
-  return static_cast<int>(cudaGetLastError());
+// dem: float32; fdr: int32 (fdr_is_int32 != 0) or uint8; downslope: the
+// same shape.  c_card, c_diag: the step lengths f32(step) * f32(px).
+extern "C" int launch_downslope(const float* dem, const void* fdr, int fdr_is_int32,
+                                float* downslope, int rows, int cols, float ed,
+                                int max_steps, float c_card, float c_diag, void* stream) {
+  const DownslopeGeometry g{rows, cols, rows, cols, 0, 0, 0, rows, cols};
+  return launch_downslope_kernel<false>(dem, fdr, fdr_is_int32, downslope, nullptr, g, ed,
+                                        max_steps, c_card, c_diag, stream);
 }
 
-extern "C" int launch_downslope_walk_tracked(const int* fdr_eff, const float* z,
-                                             const float* zt0,
-                                             const unsigned char* trunc0, int* pk,
-                                             float* zt, unsigned char* trunc,
-                                             int rows, int cols, float ed,
-                                             int max_steps, void* stream) {
-  const unsigned blocks = blocks_for(rows, cols, kThreads);
-  if (blocks == 0) return 0;
-  downslope_walk_kernel<true><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      fdr_eff, z, zt0, trunc0, pk, zt, trunc, rows, cols, ed, max_steps);
-  return static_cast<int>(cudaGetLastError());
+// dem and fdr: a tile's window, win_rows x win_cols, with a ring of halo
+// cells around the tile; its origin in the global grid (grid_rows x
+// grid_cols) is (row0, col0).  downslope and trunc: the tile's interior,
+// (win_rows - 2 halo) x (win_cols - 2 halo).
+extern "C" int launch_downslope_tracked(const float* dem, const void* fdr, int fdr_is_int32,
+                                        float* downslope, unsigned char* trunc, int win_rows,
+                                        int win_cols, int halo, int row0, int col0,
+                                        int grid_rows, int grid_cols, float ed,
+                                        int max_steps, float c_card, float c_diag,
+                                        void* stream) {
+  const DownslopeGeometry g{win_rows, win_cols, win_rows - 2 * halo, win_cols - 2 * halo,
+                            halo, row0, col0, grid_rows, grid_cols};
+  return launch_downslope_kernel<true>(dem, fdr, fdr_is_int32, downslope, trunc, g, ed,
+                                       max_steps, c_card, c_diag, stream);
 }
 
 // Phase 1's steps (B), for the wrapper and the tests.

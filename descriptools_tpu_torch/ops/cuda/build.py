@@ -46,10 +46,15 @@ SIGNATURES = {
     # mod_twi, rows, cols (of the interior), d_card, d_diag, px*px, n_topo,
     # stream
     "launch_stencil_padded": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _I, _I, _F, _F, _F, _F, _VP],
-    # fdr_eff, z, zt0, pk, zt, rows, cols, ed, max_steps, stream
-    "launch_downslope_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
-    # fdr_eff, z, zt0, trunc0, pk, zt, trunc, rows, cols, ed, max_steps, stream
-    "launch_downslope_walk_tracked": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
+    # dem, fdr, fdr is int32 (else uint8), downslope, rows, cols, ed,
+    # max_steps, c_card, c_diag, stream
+    "launch_downslope": [_VP, _VP, _I, _VP, _I, _I, _F, _I, _F, _F, _VP],
+    # dem, fdr, fdr is int32, downslope, trunc, win_rows, win_cols (of the
+    # window), halo, row0, col0, grid_rows, grid_cols, ed, max_steps,
+    # c_card, c_diag, stream
+    "launch_downslope_tracked": [
+        _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _F, _VP,
+    ],
     # the jump walk: fdr_eff, code0, code, a, b, counts, n_counts, scratch,
     # rows, cols, max_steps, rounds (int*, host), stream
     "launch_jump_walk": [

@@ -3,14 +3,19 @@
 Wrappers of ``csrc/walk.cu``:
 
 - :func:`downslope_walk` replaces ``descriptools_tpu/ops/pallas/walk_vmem.py
-  ::_downslope_kernel``, one serial walk per CUDA thread; its plain version is
-  ``ops.downslope.jacobi_walk``.  The serial walk is exact for any fdr,
-  so the JAX wrapper's monotone-descent probe and its fallback branch have
-  no counterpart here.
+  ::_downslope_kernel``: the whole downslope stage in one launch, from dem
+  (float32) and fdr to the downslope raster, one serial walk per CUDA
+  thread with the terminal test and the ratio formed in the kernel; its
+  plain version is ``ops.downslope._downslope_jacobi`` (``walk_inputs``,
+  ``jacobi_walk``, ``downslope_from_state``).  The serial walk is exact
+  for any fdr, so the JAX wrapper's monotone-descent probe and its
+  fallback branch have no counterpart here.
 - :func:`downslope_walk_tracked` replaces ``descriptools_tpu/ops/pallas/
   walk.py::_downslope_kernel`` (the blocked tier with truncation flags)
-  and the ``trunc0`` mode of ``walk_vmem.py::_downslope_kernel``; its plain
-  version is ``ops.downslope.jacobi_walk(..., trunc0=)``.
+  and the ``trunc0`` mode of ``walk_vmem.py::_downslope_kernel``: the same
+  kernel on a tile's halo window, launched over the tile alone, with the
+  flag; its plain version is ``ops.downslope.downslope_window``
+  (``trunc_cells``, the tracked ``_downslope_jacobi``, then the interior).
 - :func:`flow_walk` replaces ``walk_vmem.py::_walk2_kernel``; its plain
   version is ``ops.flow.doubling_walk``.  The step counts are two separate
   int32 rasters, so no path can overflow them and the JAX packed-count
@@ -32,10 +37,11 @@ Wrappers of ``csrc/walk.cu``:
   call.
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
-the plain version.  There is no other fallback.  The operands are built and
-the results finished in torch ops shared with the plain engines
-(``walk_inputs`` before, ``*_from_state`` after), so every engine's output
-is bitwise the same function of the walk state.
+the plain version.  There is no other fallback.  The flow walks' operands
+are built and their results finished in torch ops shared with the plain
+engines (``flow.walk_inputs`` before, ``flow_from_state`` and
+``flow_from_fold`` after), so every engine's output is bitwise the same
+function of the walk state.
 """
 
 import ctypes
@@ -48,56 +54,82 @@ from descriptools_tpu_torch.ops import flow as _flow
 from descriptools_tpu_torch.ops.cuda import build
 
 
-def downslope_walk(fdr_eff, z, zt0, elevation_difference, max_steps):
-    """(pk int32, Zt f32) at each cell's downslope stop."""
-    if not z.is_cuda:
-        return _down.jacobi_walk(fdr_eff, z, zt0, elevation_difference, max_steps)
+# fdr dtypes the downslope kernel reads as they are (uint8 as given by
+# run_example, load_window and utils.synthetic).
+FDR_DTYPES = (torch.uint8, torch.int32)
+
+
+def fdr_operand(fdr):
+    """fdr as the downslope kernel reads it: uint8 and int32 as they are;
+    any other integer dtype as int32, with every value outside 0-255 set to
+    0, so that a code such as 257 stays invalid (``d8.decode`` treats every
+    value outside the D8 set as invalid) and does not wrap onto one."""
+    if fdr.dtype not in FDR_DTYPES:
+        if fdr.is_floating_point() or fdr.is_complex() or fdr.dtype == torch.bool:
+            raise ValueError(f"fdr: expected an integer dtype, got {fdr.dtype}")
+        fdr = torch.where((fdr >= 0) & (fdr <= 255), fdr, 0).to(torch.int32)
+    return fdr.contiguous()
+
+
+def _downslope_args(dem_f, fdr, px, elevation_difference, max_steps):
+    """Checked kernel arguments shared by both entries: (fdr, its is-int32
+    flag, ed, max_steps, c_card, c_diag)."""
     _down.check_max_steps(max_steps)
-    shape = tuple(z.shape)
-    build.check_cuda_tensor(fdr_eff, "fdr_eff", torch.int32, shape)
-    build.check_cuda_tensor(z, "z", torch.float32, shape)
-    build.check_cuda_tensor(zt0, "zt0", torch.float32, shape)
-    pk = torch.empty(shape, dtype=torch.int32, device=z.device)
-    zt = torch.empty_like(z)
-    with torch.cuda.device(z.device):
+    build.check_cuda_tensor(dem_f, "dem_f", torch.float32, tuple(dem_f.shape))
+    fdr = fdr_operand(fdr)
+    build.check_cuda_tensor(fdr, "fdr", fdr.dtype, tuple(dem_f.shape))
+    c_card, c_diag = _flow.step_consts(px)  # as unpack_dist forms them
+    return (fdr, int(fdr.dtype == torch.int32), float(np.float32(elevation_difference)),
+            int(max_steps), c_card, c_diag)
+
+
+def downslope_walk(dem_f, fdr, px, elevation_difference, max_steps):
+    """Downslope index (float32) of a whole grid, in one launch."""
+    if not dem_f.is_cuda:
+        return _down._downslope_jacobi(dem_f, fdr, px, elevation_difference, max_steps)
+    fdr, is_int32, ed, steps, c_card, c_diag = _downslope_args(
+        dem_f, fdr, px, elevation_difference, max_steps)
+    rows, cols = dem_f.shape
+    out = torch.empty_like(dem_f)
+    with torch.cuda.device(dem_f.device):
         build.launch(
-            "launch_downslope_walk",
-            fdr_eff.data_ptr(), z.data_ptr(), zt0.data_ptr(), pk.data_ptr(),
-            zt.data_ptr(), shape[0], shape[1],
-            float(np.float32(elevation_difference)), int(max_steps),
-            build.stream_handle(z.device),
+            "launch_downslope", dem_f.data_ptr(), fdr.data_ptr(), is_int32, out.data_ptr(),
+            rows, cols, ed, steps, c_card, c_diag, build.stream_handle(dem_f.device),
         )
     downslope_walk.launches += 1
-    return pk, zt
+    return out
 
 
 downslope_walk.launches = 0
 
 
-def downslope_walk_tracked(fdr_eff, z, zt0, elevation_difference, max_steps, trunc0):
-    """(pk int32, Zt f32, trunc bool) at each cell's downslope stop; trunc
-    marks walks that stopped at a terminal ``trunc0`` (bool) marks."""
-    if not z.is_cuda:
-        return _down.jacobi_walk(fdr_eff, z, zt0, elevation_difference, max_steps, trunc0)
-    _down.check_max_steps(max_steps)
-    shape = tuple(z.shape)
-    build.check_cuda_tensor(fdr_eff, "fdr_eff", torch.int32, shape)
-    build.check_cuda_tensor(z, "z", torch.float32, shape)
-    build.check_cuda_tensor(zt0, "zt0", torch.float32, shape)
-    build.check_cuda_tensor(trunc0, "trunc0", torch.bool, shape)
-    pk = torch.empty(shape, dtype=torch.int32, device=z.device)
-    zt = torch.empty_like(z)
-    trunc = torch.empty_like(trunc0)  # bool: one byte, written 0 or 1
-    with torch.cuda.device(z.device):
+def downslope_walk_tracked(dem_f, fdr, px, elevation_difference, max_steps, row0, col0,
+                           grid_rows, grid_cols, halo):
+    """(downslope f32, trunc bool) of the interior of a tile's window, in
+    one launch.  The window holds the tile and a ring of ``halo`` cells;
+    ``row0``, ``col0`` is its origin in the global grid (``grid_rows`` x
+    ``grid_cols``).  trunc marks walks that stopped at a terminal that only
+    the window's edge made (``ops.downslope.trunc_cells``)."""
+    if not dem_f.is_cuda:
+        return _down.downslope_window(dem_f, fdr, px, elevation_difference, max_steps,
+                                      row0, col0, grid_rows, grid_cols, halo)
+    fdr, is_int32, ed, steps, c_card, c_diag = _downslope_args(
+        dem_f, fdr, px, elevation_difference, max_steps)
+    rows, cols = dem_f.shape
+    if halo < 0 or 2 * halo > min(rows, cols):
+        raise ValueError(f"halo {halo} does not fit a {rows}x{cols} window")
+    shape = (rows - 2 * halo, cols - 2 * halo)
+    out = torch.empty(shape, dtype=torch.float32, device=dem_f.device)
+    trunc = torch.empty(shape, dtype=torch.bool, device=dem_f.device)  # one byte, 0 or 1
+    with torch.cuda.device(dem_f.device):
         build.launch(
-            "launch_downslope_walk_tracked",
-            fdr_eff.data_ptr(), z.data_ptr(), zt0.data_ptr(), trunc0.data_ptr(),
-            pk.data_ptr(), zt.data_ptr(), trunc.data_ptr(), shape[0], shape[1],
-            float(np.float32(elevation_difference)), int(max_steps),
-            build.stream_handle(z.device),
+            "launch_downslope_tracked", dem_f.data_ptr(), fdr.data_ptr(), is_int32,
+            out.data_ptr(), trunc.data_ptr(), rows, cols, int(halo), int(row0), int(col0),
+            int(grid_rows), int(grid_cols), ed, steps, c_card, c_diag,
+            build.stream_handle(dem_f.device),
         )
     downslope_walk_tracked.launches += 1
-    return pk, zt, trunc
+    return out, trunc
 
 
 downslope_walk_tracked.launches = 0
@@ -183,10 +215,10 @@ absorbing_walk.pending = None
 
 
 def downslope_cuda(dem, fdr, px, elevation_difference, max_steps):
-    """Downslope index through :func:`downslope_walk`."""
-    fdr_eff, z, zt0 = _down.walk_inputs(dem, fdr, px)
-    pk, zt = downslope_walk(fdr_eff, z, zt0, elevation_difference, max_steps)
-    return _down.downslope_from_state(z, pk, zt, px)
+    """Downslope index through :func:`downslope_walk` (one launch where dem
+    is float32 already)."""
+    dem_f = dem.to(torch.float32).contiguous()
+    return downslope_walk(dem_f, fdr, px, elevation_difference, max_steps)
 
 
 def flow_cuda(fdr, river, px, max_steps):

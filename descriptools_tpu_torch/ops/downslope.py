@@ -5,23 +5,27 @@ D8 path until the elevation there is at or below ``z - ed``, a terminal
 (border exit, NoData target, dead end) or ``max_steps``; the result is
 ``(z - z_stop) / dist_stop`` in every branch.
 
-The walk is split into three parts, shared by every engine so that their
-outputs are bitwise equal:
+The plain engine is split into three parts, so that each can be held to
+its JAX counterpart:
 
 - :func:`walk_inputs` builds the walk's operands: ``fdr_eff`` (0 at
   terminals, so terminals hold still), ``z``, and ``zt0`` (z with terminals
   offset by -2^20, so one compare ``Zt <= z0 - ed`` catches both stops);
-- a walk engine returns the stop state ``(pk, Zt)``: ``pk`` the cardinal and
-  diagonal step counts packed in one int32 (bits 0-15 / 16-31), ``Zt`` the
-  offset-encoded elevation at the stop.  :func:`jacobi_walk` is the plain
-  engine (synchronous pull sweeps, as the JAX ``_downslope_jacobi``);
-  ``ops.cuda.walk.downslope_walk`` runs one serial walk per CUDA thread;
+- :func:`jacobi_walk` returns the stop state ``(pk, Zt)``: ``pk`` the
+  cardinal and diagonal step counts packed in one int32 (bits 0-15 /
+  16-31), ``Zt`` the offset-encoded elevation at the stop (synchronous pull
+  sweeps, as the JAX ``_downslope_jacobi``);
 - :func:`downslope_from_state` forms the ratio once, post-pass.
+
+The CUDA kernel (``ops.cuda.walk.downslope_walk``) does all three in one
+launch from dem and fdr, bitwise this composition (:func:`_downslope_jacobi`).
 
 On a block cut from a larger grid (a tile or shard with a halo),
 :func:`trunc_cells` marks the terminals that only the block's edge made,
 and the walk engines given ``trunc0`` also return a flag per cell: its walk
 stopped at such a terminal, so its result is not yet exact.
+:func:`downslope_window` composes them for a tile's halo window, the
+plain version of ``ops.cuda.walk.downslope_walk_tracked``.
 """
 
 import numpy as np
@@ -164,12 +168,26 @@ def _downslope_jacobi(dem, fdr, px, elevation_difference, max_steps, trunc0=None
     return downslope_from_state(z, pk, zt, px), tr
 
 
+def downslope_window(dem_f, fdr, px, elevation_difference, max_steps, row0, col0,
+                     grid_rows, grid_cols, halo):
+    """(downslope f32, truncation flags bool) of the interior of a window
+    that holds a tile and a ring of ``halo`` cells around it: every start of
+    the window walks, and the interior's results are returned.  ``row0``,
+    ``col0``: the window's origin in the global grid (``grid_rows`` x
+    ``grid_cols``)."""
+    rows, cols = dem_f.shape
+    tr0 = trunc_cells(dem_f, fdr, row0, col0, grid_rows, grid_cols)
+    dn, tr = _downslope_jacobi(dem_f, fdr, px, elevation_difference, max_steps, trunc0=tr0)
+    interior = (slice(halo, rows - halo), slice(halo, cols - halo))
+    return dn[interior], tr[interior]
+
+
 def downslope(dem, fdr, px, elevation_difference,
               max_steps=DOWNSLOPE_MAX_STEPS, engine="torch"):
     """Downslope index of a whole grid (float32).
 
     ``engine="torch"`` runs the plain engine on any device; ``"cuda"`` the
-    serial-walk kernel (``ops.cuda.walk.downslope_cuda``).
+    downslope kernel (``ops.cuda.walk.downslope_cuda``).
     """
     if engine == "cuda":
         from descriptools_tpu_torch.ops.cuda.walk import downslope_cuda

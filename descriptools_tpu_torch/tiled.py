@@ -446,7 +446,7 @@ def tiled_suite(loaders, shape, cfg, device, tile_rows=4096, tile_cols=4096,
         if cache is not None else loaders
     )
     run_stencil = _st.stencil_padded if engine == "cuda" else _st.stencil_padded_plain
-    run_walk = _walk.downslope_walk_tracked if engine == "cuda" else _down.jacobi_walk
+    run_down = _walk.downslope_walk_tracked if engine == "cuda" else _down.downslope_window
 
     def _ext_inputs(ys, xs, halo):
         """dem and fdr of a tile with a ``halo`` rim (NoData / 0 beyond
@@ -465,13 +465,9 @@ def tiled_suite(loaders, shape, cfg, device, tile_rows=4096, tile_cols=4096,
     def _downslope_ext(dem_f_ext, fdr_ext, y0, x0, halo):
         """Downslope of the interior of a halo-extended window, and whether
         any interior walk was cut by the window's edge (0-dim bool)."""
-        tr0 = _down.trunc_cells(dem_f_ext, fdr_ext, y0, x0, R, C)
-        fdr_eff, z, zt0 = _down.walk_inputs(dem_f_ext, fdr_ext, cfg.px)
-        pk, zt, tr = run_walk(
-            fdr_eff, z, zt0, cfg.elevation_difference, cfg.downslope_max_steps, tr0
-        )
-        dn = _down.downslope_from_state(z, pk, zt, cfg.px)
-        return dn[halo:-halo, halo:-halo], tr[halo:-halo, halo:-halo].any()
+        dn, tr = run_down(dem_f_ext, fdr_ext, cfg.px, cfg.elevation_difference,
+                          cfg.downslope_max_steps, y0, x0, R, C, halo)
+        return dn, tr.any()
 
     def _suite_tile(iy, ix, ys, xs, dem_ext, fdr_ext, river_t, fac_t):
         """Every descriptor of one tile, as tensors on the device."""

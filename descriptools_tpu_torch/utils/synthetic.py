@@ -211,3 +211,59 @@ def adversarial_dem(rng, shape, special=0.1):
         dem[:3, :3] = NODATA
         dem[1, 1] = 1.0
     return dem
+
+
+def downslope_cases(rows=40, cols=56, seed=0):
+    """Named ``(dem float32, fdr, ed, max_steps)`` on the edges of the
+    downslope walk, on a fractional surface falling to the south-east with
+    its steepest-descent D8:
+
+    - ``nodata``: NoData starts (with their codes, or 0) and NoData targets;
+    - ``border_exits``: integer elevations, codes that leave the grid on
+      every edge and corner;
+    - ``invalid_codes``: codes 0, 3 and 255 among the valid ones;
+    - ``fdr_int16``, ``fdr_int64``: NoData, border exits and invalid codes,
+      with 257 and -1 too, in a wider dtype;
+    - ``terminal_holds_still``: eastward walks into terminals (a dead end,
+      and the east border) more than 2^20 - ed above them, which do not stop
+      them, so they hold still to the cap;
+    - ``fractional_terminal_stops``: eastward walks on fractional elevations
+      that all stop at the east border's exits, whose elevation the -2^20
+      terminal offset rounds to 1/16.
+    """
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:rows, 0:cols]
+    dem = (300.0 - 0.37 * yy - 0.21 * xx + rng.random((rows, cols)) * 2.3).astype(np.float32)
+    fdr = d8_from_dem(dem)
+    nodata = dem.copy()
+    nodata[rng.random(dem.shape) < 0.06] = NODATA
+    nodata[5:8, 10:14] = NODATA
+    nodata_fdr = fdr.copy()
+    nodata_fdr[5:8, 10:14] = 0
+    exits = fdr.copy()
+    exits[0, :] = rng.choice([32, 64, 128], cols)
+    exits[-1, :] = rng.choice([2, 4, 8], cols)
+    exits[:, 0] = rng.choice([8, 16, 32], rows)
+    exits[:, -1] = rng.choice([1, 2, 128], rows)
+    invalid = fdr.copy()
+    hit = rng.random(dem.shape) < 0.08
+    invalid[hit] = rng.choice([0, 3, 255], int(hit.sum()))
+    wide = np.where(rng.random(dem.shape) < 0.08, invalid, exits).astype(np.int64)
+    hit = rng.random(dem.shape) < 0.06
+    wide[hit] = rng.choice([257, -1], int(hit.sum()))
+    east = np.ones((rows, cols), np.uint8)
+    still = (1000.0 - 0.01 * xx).astype(np.float32)
+    still[::2, 20] = 1.2e6
+    still[:, -1] = 1.2e6
+    east_still = east.copy()
+    east_still[::2, 20] = 0
+    frac = (300.0 - 0.21 * xx + rng.random((rows, cols)) * 2.3).astype(np.float32)
+    return {
+        "nodata": (nodata, nodata_fdr, 5.0, 200),
+        "border_exits": (np.round(dem), exits, 5.0, 200),
+        "invalid_codes": (dem, invalid, 5.0, 200),
+        "fdr_int16": (nodata, wide.astype(np.int16), 5.0, 200),
+        "fdr_int64": (nodata, wide, 5.0, 200),
+        "terminal_holds_still": (still, east_still, 5.0, 30),
+        "fractional_terminal_stops": (frac, east, 50.0, 5000),
+    }

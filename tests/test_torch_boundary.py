@@ -5,8 +5,13 @@ Tolerances: everything here is integer or bitwise.
 - ``trunc_cells``, and ``jacobi_walk(trunc0=)``'s downslope and flags,
   bitwise against the JAX ``_downslope_jacobi(trunc0=)`` and against the
   blocked TPU kernel ``downslope_pallas`` (interpret mode);
-- a numpy serial walk with the flag rule of ``csrc/walk.cu``'s tracked
-  kernel, bitwise against the port's plain engine;
+- a numpy serial walk on the plain engine's operands, with the flag read
+  at the stop cell, bitwise against the port's plain engine;
+- the tracked form of ``fused_downslope_model`` (``csrc/walk.cu::
+  downslope_kernel<true>``: raw dem and fdr of a window in, the interior's
+  downslope and flags out), bitwise against JAX ``_downslope_jacobi(trunc0=)``
+  and the blocked TPU kernel ``downslope_pallas`` (interpret mode) on the
+  interior, at halos 0 and 6, on every window;
 - ``local_flow_summary`` (status, step count, exit target, river index,
   payloads) bitwise against the JAX local phase through the VMEM absorbing
   kernel ``absorbing_walk_pallas_vmem`` (interpret mode);
@@ -26,6 +31,8 @@ from descriptools_tpu.parallel import boundary as jb
 from descriptools_tpu.utils.synthetic import synthetic_basin, windowed_basin
 from descriptools_tpu_torch.ops import downslope as tdown
 from descriptools_tpu_torch.parallel import boundary as tb
+from descriptools_tpu_torch.utils.synthetic import downslope_cases
+from test_torch_downslope import fused_downslope_model
 
 PX = 12.5
 
@@ -54,6 +61,16 @@ TRUNC_CASES = {
         synthetic_basin(90, 120, seed=3)[1][10:74, 20:116], (10, 20), (90, 120), 5.0, 200,
     ),
     "tall_north_cut": lambda: (*_tall_north_window(), 50.0, 600),
+    # NoData, invalid codes, 257 and -1 in int16, exits on every edge: the
+    # west and east ones leave the window inside the grid.
+    "adversarial_int16": lambda: (
+        np.round(downslope_cases()["fdr_int16"][0]), downslope_cases()["fdr_int16"][1],
+        (0, 9), (40, 86), 5.0, 200,
+    ),
+    # Fractional elevations, every walk cut at the window's east edge.
+    "fractional_east_cut": lambda: (
+        *downslope_cases()["fractional_terminal_stops"][:2], (0, 0), (40, 112), 50.0, 5000,
+    ),
 }
 
 
@@ -139,18 +156,51 @@ def test_serial_tracked_walk_reference_bitwise(case):
         np.testing.assert_array_equal(g, w.numpy())
 
 
+HALOS = (0, 6)
+
+
+def _interior(a, halo):
+    return a[halo : a.shape[0] - halo, halo : a.shape[1] - halo]
+
+
+@pytest.mark.parametrize("case", sorted(TRUNC_CASES))
+def test_fused_tracked_model_bitwise_vs_jax_jacobi(case):
+    dem, fdr, origin, grid, ed, max_steps = TRUNC_CASES[case]()
+    tr0 = j_trunc_cells(jnp.asarray(dem), jnp.asarray(fdr), *origin, *grid)
+    want, wtr = (np.asarray(a) for a in j_jacobi(jnp.asarray(dem), jnp.asarray(fdr), PX, ed,
+                                                  max_steps, trunc0=tr0))
+    for halo in HALOS:
+        got, gtr = fused_downslope_model(dem, fdr, PX, ed, max_steps, halo, origin, grid)
+        np.testing.assert_array_equal(got, _interior(want, halo), err_msg=f"halo {halo}")
+        np.testing.assert_array_equal(gtr, _interior(wtr, halo), err_msg=f"halo {halo}")
+    assert wtr.any()  # the window's edge really cuts walks
+
+
+@pytest.mark.parametrize("case", sorted(TRUNC_CASES))
+def test_fused_tracked_model_bitwise_vs_blocked_pallas_kernel(case):
+    dem, fdr, origin, grid, ed, max_steps = TRUNC_CASES[case]()
+    tr0 = j_trunc_cells(jnp.asarray(dem), jnp.asarray(fdr), *origin, *grid)
+    want, wtr = (np.asarray(a) for a in downslope_pallas(
+        jnp.asarray(dem), jnp.asarray(fdr), PX, ed, max_steps=max_steps, h=8, trunc0=tr0,
+        interpret=True))
+    for halo in HALOS:
+        got, gtr = fused_downslope_model(dem, fdr, PX, ed, max_steps, halo, origin, grid)
+        np.testing.assert_array_equal(got, _interior(want, halo), err_msg=f"halo {halo}")
+        np.testing.assert_array_equal(gtr, _interior(wtr, halo), err_msg=f"halo {halo}")
+
+
 def test_tracked_walk_wrapper_on_cpu_runs_the_plain_engine():
     from descriptools_tpu_torch.ops.cuda import walk as twalk
 
     dem, fdr, origin, grid, ed, max_steps = TRUNC_CASES["basin_window"]()
     d, f = torch.from_numpy(dem), torch.from_numpy(fdr)
     tr0 = tdown.trunc_cells(d, f, *origin, *grid)
-    ops = tdown.walk_inputs(d, f, PX)
+    want, wtr = tdown._downslope_jacobi(d, f, PX, ed, max_steps, trunc0=tr0)
     before = twalk.downslope_walk_tracked.launches
-    got = twalk.downslope_walk_tracked(*ops, ed, max_steps, tr0)
+    for halo in HALOS:
+        got, gtr = twalk.downslope_walk_tracked(d, f, PX, ed, max_steps, *origin, *grid, halo)
+        assert torch.equal(got, _interior(want, halo)) and torch.equal(gtr, _interior(wtr, halo))
     assert twalk.downslope_walk_tracked.launches == before
-    for g, w in zip(got, tdown.jacobi_walk(*ops, ed, max_steps, tr0)):
-        assert torch.equal(g, w)
 
 
 def test_capped_walks_are_not_flagged():

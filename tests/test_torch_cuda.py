@@ -17,7 +17,7 @@ from descriptools_tpu_torch.ops import flow
 from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
 from descriptools_tpu_torch.ops.cuda import stencil as st
 from descriptools_tpu_torch.ops.cuda import walk
-from descriptools_tpu_torch.utils.synthetic import adversarial_dem, windowed_basin
+from descriptools_tpu_torch.utils.synthetic import adversarial_dem, downslope_cases, windowed_basin
 
 pytestmark = pytest.mark.cuda
 
@@ -73,9 +73,10 @@ def test_stencil_kernels_match_plain_at_ragged_shapes(dev, fac_dtype):
 def test_walk_kernels_match_plain(dev, basin):
     dem_f = torch.as_tensor(basin["dem"].astype(np.float32), device=dev)
     fdr = torch.as_tensor(basin["fdr"], device=dev)
-    ops = down.walk_inputs(dem_f, fdr, 12.5)
-    for g, w in zip(walk.downslope_walk(*ops, 5.0, 5000), down.jacobi_walk(*ops, 5.0, 5000)):
-        assert torch.equal(g, w)
+    before = walk.downslope_walk.launches
+    got = walk.downslope_walk(dem_f, fdr, 12.5, 5.0, 5000)
+    assert walk.downslope_walk.launches == before + 1
+    assert torch.equal(got, down._downslope_jacobi(dem_f, fdr, 12.5, 5.0, 5000))
     ops = flow.walk_inputs(fdr, torch.as_tensor(basin["river"], device=dev))
     for g, w in zip(walk.flow_walk(*ops, 20000), flow.doubling_walk(*ops, 20000)):
         assert torch.equal(g, w)
@@ -100,10 +101,50 @@ def test_suite_runs_every_kernel_and_matches_plain(dev, basin):
     np.testing.assert_array_equal(got[3], want[3])
 
 
+@pytest.mark.parametrize("fdr_dtype", [torch.uint8, torch.int32, torch.int16, torch.int64])
+def test_downslope_kernel_matches_plain_on_adversarial_cases(dev, fdr_dtype):
+    """The fused kernel against its plain version on every fixture of
+    ``downslope_cases``, with fdr in each dtype (257 and -1 stay invalid in
+    the wider ones: int32 as the kernel reads it, int16 and int64 through
+    the wrapper's mapping)."""
+    for name, (dem, fdr, ed, max_steps) in downslope_cases().items():
+        dem_f = torch.as_tensor(dem, device=dev)
+        f = torch.as_tensor(fdr, device=dev)
+        if fdr_dtype == torch.uint8:
+            f = torch.where((f >= 0) & (f <= 255), f, 0)  # codes uint8 holds
+        f = f.to(fdr_dtype)
+        got = walk.downslope_walk(dem_f, f, 12.5, ed, max_steps)
+        assert torch.equal(got, down._downslope_jacobi(dem_f, f, 12.5, ed, max_steps)), name
+
+
+def test_tracked_kernel_matches_plain_on_the_interior(dev, basin):
+    """The tracked kernel launched over a window's interior against the plain
+    composition (trunc_cells, the tracked walk, the interior), at several
+    halos, on a basin window and on the adversarial int16 window."""
+    dem_f = torch.as_tensor(basin["dem"].astype(np.float32), device=dev)[10:90, 20:200].contiguous()
+    fdr = torch.as_tensor(basin["fdr"], device=dev)[10:90, 20:200].contiguous()
+    dem_a, fdr_a, _, _ = downslope_cases()["fdr_int16"]
+    windows = [(dem_f, fdr, (10, 20), (130, 257)),
+               (torch.as_tensor(np.round(dem_a), device=dev), torch.as_tensor(fdr_a, device=dev),
+                (0, 9), (40, 86))]
+    for d, f, origin, grid in windows:
+        for halo in (0, 1, 6, 17):
+            got = walk.downslope_walk_tracked(d, f, 12.5, 5.0, 5000, *origin, *grid, halo)
+            want = down.downslope_window(d, f, 12.5, 5.0, 5000, *origin, *grid, halo)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (origin, halo)
+    assert bool(walk.downslope_walk_tracked(dem_f, fdr, 12.5, 5.0, 5000, 10, 20, 130, 257, 0)[1].any())
+
+
 def test_kernel_wrappers_refuse_wrong_dtype(dev):
     z = torch.zeros((4, 5), device=dev)
-    with pytest.raises(ValueError, match="int32"):
-        walk.downslope_walk(z, z, z, 5.0, 10)
+    u8 = torch.zeros((4, 5), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        walk.downslope_walk(z.to(torch.int32), u8, 12.5, 5.0, 10)
+    with pytest.raises(ValueError, match="float32"):
+        walk.downslope_walk_tracked(z.double(), u8, 12.5, 5.0, 10, 0, 0, 4, 5, 1)
+    with pytest.raises(ValueError, match="integer dtype"):
+        walk.downslope_walk(z, z, 12.5, 5.0, 10)
     i = torch.zeros((4, 5), dtype=torch.int32, device=dev)
     for fn in (walk.flow_walk, walk.absorbing_walk):
         with pytest.raises(ValueError, match="2\\^30"):
@@ -182,13 +223,11 @@ def test_stencil_padded_kernel_matches_plain(dev, basin):
 def test_tracked_and_absorbing_walk_kernels_match_plain(dev, basin):
     dem_f = torch.as_tensor(basin["dem"].astype(np.float32), device=dev)[10:90, 20:200].contiguous()
     fdr = torch.as_tensor(basin["fdr"], device=dev)[10:90, 20:200].contiguous()
-    tr0 = down.trunc_cells(dem_f, fdr, 10, 20, 130, 257)
-    ops = down.walk_inputs(dem_f, fdr, 12.5)
-    got = walk.downslope_walk_tracked(*ops, 5.0, 5000, tr0)
-    want = down.jacobi_walk(*ops, 5.0, 5000, tr0)
+    got = walk.downslope_walk_tracked(dem_f, fdr, 12.5, 5.0, 5000, 10, 20, 130, 257, 0)
+    want = down.downslope_window(dem_f, fdr, 12.5, 5.0, 5000, 10, 20, 130, 257, 0)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert bool(got[2].any())  # some walks of this window are cut
+    assert bool(got[1].any())  # some walks of this window are cut
     river = torch.as_tensor(basin["river"], device=dev)[10:90, 20:200].contiguous()
     loc_ops = flow.walk_inputs(fdr, river)
     for g, w in zip(walk.absorbing_walk(*loc_ops, 20000), flow.doubling_walk(*loc_ops, 20000)):

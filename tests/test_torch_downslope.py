@@ -4,9 +4,19 @@ The port's downslope (plain engine on the CPU) is held bitwise against the
 JAX jacobi engine and against the TPU kernel it replaces
 (``walk_vmem.downslope_pallas_vmem``, interpret mode), on a synthetic basin,
 on long northward walks with and without ascending bumps (non-monotone
-descent) and on fractional elevations with a low cap.  A numpy serial walk,
-the plain form of the CUDA kernel's algorithm (one walk per start cell),
-is held bitwise against both the port's walk state and the JAX output.
+descent), on fractional elevations with a low cap, and on the fixtures of
+``utils.synthetic.downslope_cases``: NoData starts and targets, border
+exits, invalid codes, fdr as int16 and int64 with 257 and -1, a terminal
+that does not stop its walk, fractional terminal stops.
+
+Two numpy models, each held bitwise:
+- ``serial_walk_state``, one walk per start on the plain engine's operands,
+  against the port's ``jacobi_walk`` state;
+- ``fused_downslope_model``, the CUDA kernel's algorithm
+  (``csrc/walk.cu::downslope_kernel``: raw dem and fdr in, the terminal
+  test formed on the fly, a one-step lookahead, the ratio in the kernel's
+  order in float32), against the JAX jacobi engine and the VMEM kernel.
+  ``tests/test_torch_boundary.py`` holds its tracked form.
 """
 
 import numpy as np
@@ -16,8 +26,11 @@ import torch
 from descriptools_tpu.ops.downslope import _downslope_jacobi as j_jacobi
 from descriptools_tpu.ops.pallas.walk_vmem import downslope_pallas_vmem
 from descriptools_tpu.utils.synthetic import d8_from_dem, synthetic_basin
+from descriptools_tpu_torch.constants import D8_STEP
+from descriptools_tpu_torch.d8 import decode, successor
 from descriptools_tpu_torch.ops import downslope as tdown
 from descriptools_tpu_torch.ops.cuda import walk as twalk
+from descriptools_tpu_torch.utils.synthetic import downslope_cases
 
 PX = 12.5
 
@@ -46,6 +59,7 @@ CASES = {
     "tall_north": lambda: (*_tall_north(320, 128, None), 50.0, 600),
     "tall_north_bumps": lambda: (*_tall_north(320, 128, 37), 50.0, 600),
     "fractional_capped": lambda: (*_fractional(), 5.0, 7),
+    **{name: (lambda name=name: downslope_cases()[name]) for name in downslope_cases()},
 }
 
 
@@ -84,6 +98,156 @@ def serial_walk_state(fdr_eff, z, zt0, ed, max_steps):
         zt[lanes] = zt0[cur[lanes]]
         walking[lanes[zt[lanes] <= thresh[lanes]]] = False
     return pk.reshape(rows, cols), zt.reshape(rows, cols)
+
+
+_OFF = np.float32(1 << 20)
+_HALF = np.float32(1 << 19)
+_NODATA = np.float32(-100.0)
+# csrc/d8.cuh::d8_decode's tables, by the code's bit (E, SE, S, SW, W, NW, N, NE).
+_DY = np.array([0, 1, 1, 1, 0, -1, -1, -1])
+_DX = np.array([1, 1, 0, -1, -1, -1, 0, 1])
+
+
+def _decode(code):
+    """(dy, dx, diag, valid) of int64 codes, by the code's bit: valid where
+    the code is a power of two from 1 to 128."""
+    valid = (code >= 1) & (code <= 128) & ((code & (code - 1)) == 0)
+    k = np.where(valid, np.log2(np.where(valid, code, 1)).round().astype(np.int64), 0)
+    return _DY[k], _DX[k], (k & 1) == 1, valid
+
+
+def fused_downslope_model(dem_f, fdr, px, ed, max_steps, halo=0, origin=None, grid=None):
+    """numpy form of csrc/walk.cu::downslope_kernel: every lane is one start
+    of the interior ``[halo, -halo)`` of ``dem_f`` (lanes advance together).
+
+    At each cell p the lane holds p's decoded code and, where p's step stays
+    inside the raster, z and fdr of p's successor, loaded together: they
+    complete p's terminal test (invalid code, exit, z -100 at p or at its
+    target), and they are the next step's operand.  Then the ratio, in the
+    kernel's order, in float32.  With ``origin`` and ``grid`` (the raster's
+    origin and the global grid's shape) it also returns the truncation flag
+    read at the stop cell.  Returns the interior's rasters."""
+    z = np.asarray(dem_f, np.float32)
+    rows_w, cols_w = z.shape
+    zf, cf = z.reshape(-1), np.asarray(fdr).astype(np.int64).reshape(-1)
+    ii, jj = np.mgrid[halo : rows_w - halo, halo : cols_w - halo]
+    shape = ii.shape
+    r, c = ii.reshape(-1).copy(), jj.reshape(-1).copy()
+    z0 = zf[r * cols_w + c]
+    thresh = z0 - np.float32(ed)
+    c_card, c_diag = np.float32(D8_STEP[0]) * np.float32(px), np.float32(D8_STEP[1]) * np.float32(px)
+
+    def look_ahead(r, c, code):
+        dy, dx, diag, valid = _decode(code)
+        ty, tx = r + dy, c + dx
+        inside = valid & (ty >= 0) & (ty < rows_w) & (tx >= 0) & (tx < cols_w)
+        nxt = np.where(inside, ty * cols_w + tx, 0)
+        zn = np.where(inside, zf[nxt], np.float32(0.0))
+        fn = np.where(inside, cf[nxt], 0)
+        return dy, dx, diag, valid, inside, zn, fn
+
+    zc = z0.copy()
+    dy, dx, diag, valid, inside, zn, fn = look_ahead(r, c, cf[r * cols_w + c])
+    terminal = ~inside | (zn == _NODATA) | (zc == _NODATA)
+    zt = np.where(terminal, zc - _OFF, zc)
+    pk = np.zeros(r.shape, np.int32)
+    walking = ~(zt <= thresh) & ~terminal
+    for _ in range(max_steps):
+        lanes = np.flatnonzero(walking)
+        if lanes.size == 0:
+            break
+        pk[lanes] += np.where(diag[lanes], 1 << 16, 1).astype(np.int32)
+        r[lanes] += dy[lanes]
+        c[lanes] += dx[lanes]
+        zc[lanes] = zn[lanes]
+        ahead = look_ahead(r[lanes], c[lanes], fn[lanes])
+        for arr, new in zip((dy, dx, diag, valid, inside, zn, fn), ahead):
+            arr[lanes] = new
+        terminal[lanes] = ~inside[lanes] | (zn[lanes] == _NODATA) | (zc[lanes] == _NODATA)
+        zt[lanes] = np.where(terminal[lanes], zc[lanes] - _OFF, zc[lanes])
+        walking[lanes] = ~(zt[lanes] <= thresh[lanes]) & ~terminal[lanes]
+    z_at = np.where(zt < -_HALF, zt + _OFF, zt)
+    dist = (pk & 0xFFFF).astype(np.float32) * c_card + (pk >> 16).astype(np.float32) * c_diag
+    with np.errstate(divide="ignore", invalid="ignore"):
+        down = np.where(pk == 0, np.float32(0.0), (z0 - z_at) / dist)
+    out = np.where(z0 == _NODATA, _NODATA, down).reshape(shape)
+    assert out.dtype == np.float32
+    if origin is None:
+        return out
+    gy, gx = r + dy + origin[0], c + dx + origin[1]
+    in_grid = (gy >= 0) & (gy < grid[0]) & (gx >= 0) & (gx < grid[1])
+    cut = valid & ~inside & in_grid & (zc != _NODATA)
+    return out, ((zt <= thresh) & (zt < -_HALF) & cut).reshape(shape)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fused_model_bitwise_vs_jax_jacobi(case):
+    dem, fdr, ed, max_steps = CASES[case]()
+    want = np.asarray(j_jacobi(dem, fdr, PX, ed, max_steps))
+    np.testing.assert_array_equal(fused_downslope_model(dem, fdr, PX, ed, max_steps), want)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fused_model_bitwise_vs_pallas_vmem_kernel(case):
+    dem, fdr, ed, max_steps = CASES[case]()
+    want = np.asarray(
+        downslope_pallas_vmem(dem, fdr, PX, ed, max_steps=max_steps, interpret=True)
+    )
+    np.testing.assert_array_equal(fused_downslope_model(dem, fdr, PX, ed, max_steps), want)
+
+
+@pytest.mark.parametrize("case", ["fdr_int16", "fdr_int64"])
+def test_fdr_operand_keeps_out_of_range_codes_invalid(case):
+    """The kernel wrapper reads a wider fdr as int32 with every value outside
+    0-255 set to 0: 257 stays invalid (it would wrap onto 1 as uint8), and
+    the kernel's function, the model's, does not change."""
+    dem, fdr, ed, max_steps = CASES[case]()
+    assert (fdr == 257).any() and (fdr == -1).any()
+    op = twalk.fdr_operand(torch.from_numpy(fdr))
+    assert op.dtype == torch.int32 and not bool(((op == 257) | (op == -1)).any())
+    np.testing.assert_array_equal(op.numpy(), np.where((fdr >= 0) & (fdr <= 255), fdr, 0))
+    np.testing.assert_array_equal(fused_downslope_model(dem, op.numpy(), PX, ed, max_steps),
+                                  fused_downslope_model(dem, fdr, PX, ed, max_steps))
+
+
+def test_fdr_operand_passes_the_kernel_dtypes_and_refuses_floats():
+    for dtype in (torch.uint8, torch.int32):
+        f = torch.arange(12, dtype=dtype).reshape(3, 4)
+        assert twalk.fdr_operand(f).dtype == dtype
+        assert torch.equal(twalk.fdr_operand(f), f)
+    for dtype in (torch.float32, torch.bool):
+        with pytest.raises(ValueError, match="integer dtype"):
+            twalk.fdr_operand(torch.zeros((3, 4), dtype=dtype))
+
+
+def test_adversarial_cases_reach_their_branches():
+    """Each fixture of ``downslope_cases`` reaches what it is named for."""
+    cases = downslope_cases()
+    dem, fdr, ed, max_steps = cases["nodata"]
+    succ = successor(torch.from_numpy(fdr), *dem.shape)[0].numpy().reshape(-1)
+    assert ((dem == -100) & (fdr != 0)).any() and ((dem == -100) & (fdr == 0)).any()
+    assert ((dem != -100) & (dem.reshape(-1)[succ].reshape(dem.shape) == -100)).any()
+    dem, fdr, _, _ = cases["border_exits"]
+    rows, cols = dem.shape
+    _, _, _, valid = decode(torch.from_numpy(fdr))
+    ok = successor(torch.from_numpy(fdr), rows, cols)[2]
+    assert int((valid & ~ok).sum()) >= 2 * (rows + cols) - 4
+    for name in ("invalid_codes", "fdr_int16"):
+        assert set(np.unique(cases[name][1])) >= {0, 3, 255}
+    # The holding terminals stop no walk, and walks reach them and the cap.
+    dem, fdr, ed, max_steps = cases["terminal_holds_still"]
+    pk, zt = tdown.jacobi_walk(*tdown.walk_inputs(torch.from_numpy(dem), torch.from_numpy(fdr), PX),
+                               ed, max_steps)
+    held = (zt == float(np.float32(1.2e6) - _OFF)) & (pk > 0)
+    assert bool(held.any())
+    assert bool(((pk & 0xFFFF) == max_steps).any())
+    # Fractional stops at the east border: the offset rounds them to 1/16.
+    dem, fdr, ed, max_steps = cases["fractional_terminal_stops"]
+    pk, zt = tdown.jacobi_walk(*tdown.walk_inputs(torch.from_numpy(dem), torch.from_numpy(fdr), PX),
+                               ed, max_steps)
+    assert bool(((zt < -tdown._HALF) & (pk > 0))[:, :-1].all())  # every walk reaches the border
+    z_at = (zt + tdown._OFF).numpy()
+    assert (z_at[:, 0] != dem[:, -1]).any() and (z_at * 16 == np.round(z_at * 16)).all()
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -139,8 +303,10 @@ def test_downslope_wrapper_on_cpu_runs_the_plain_engine():
     dem, fdr, ed, max_steps = CASES["basin"]()
     before = twalk.downslope_walk.launches
     got = twalk.downslope_cuda(torch.from_numpy(dem), torch.from_numpy(fdr), PX, ed, max_steps)
+    direct = twalk.downslope_walk(torch.from_numpy(dem), torch.from_numpy(fdr), PX, ed, max_steps)
     assert twalk.downslope_walk.launches == before
     np.testing.assert_array_equal(got.numpy(), _port(dem, fdr, ed, max_steps))
+    np.testing.assert_array_equal(direct.numpy(), got.numpy())
 
 
 @pytest.mark.parametrize("max_steps", [-1, 1 << 16])
