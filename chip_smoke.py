@@ -31,7 +31,10 @@ Phases, each printing its own lines:
    window edge, the tracked downslope at halos 0 and 8);
 2. the in-core path: ``descriptor_suite`` on CUDA tensors (the kernels
    run), then ``classify_flood``, held against the ``engine="torch"`` run
-   on the same card, with every kernel's launch count checked;
+   on the same card, with every kernel's launch count checked; the
+   one-card exact classifier (``parallel.classify.sharded_classify_flood``)
+   identical to the host ``classify_flood``, and
+   ``calibration(backend="torch")`` identical to its own CPU run, timed;
 3. timing: the suite and each kernel beside its plain version and its
    bound, median of 5 runs after one warm-up, with CUDA events, and the
    stencil's device time (torch.profiler); a torch.profiler check that the
@@ -52,6 +55,8 @@ Phases, each printing its own lines:
    kernels against their plain versions on one 4096x4096 tile's operands,
    checked and timed, with the padded stencil's device time and a
    torch.profiler check that the tracked downslope call is one kernel;
+   ``verify.streaming_flow_invariants`` over every cell of the tiled
+   outputs (0 violations);
 5. the large-grid entry point: ``descriptor_suite(engine="cuda_blocked")``
    at the basin's shape against ``engine="torch_blocked"``; then
    ``run_suite_checkpointed(engine="cuda_blocked")`` at 8192x8192 (phase
@@ -59,10 +64,23 @@ Phases, each printing its own lines:
    bitwise against an uninterrupted ``descriptor_suite`` of the same grid,
    with stage seconds, checkpoint bytes and peak device memory (and the
    in-core ``cuda_blocked`` suite's peak); the fold kernel against its
-   plain version there, checked and timed, with its device time by step.
+   plain version there, checked and timed, with its device time by step;
+6. the reference API: the reference example's script through ``compat``
+   on the card (the downslope and jump-walk kernels) against the same
+   script with ``device="cpu"``;
+7. an oracle probe: the card's suite on a crop of the basin against the
+   float64 ``oracle`` (integers exact, floats within rtol 2e-5);
+8. BASELINE config 3 at 10000x10000: ``derive_terrain`` on
+   ``synthetic_dem(10000, 10000, seed=0)`` (int32), with the
+   accumulation's time, rounds, device time by activity and peak memory; fdr
+   bitwise the CPU's, fac held by the donor-sum identity over every cell
+   (and bitwise the CPU's at 2178x1534); the river ``fac > RIVER_FAC``;
+   the suite through K2/K3/K4 (launch counters read) against
+   ``engine="torch"``; the one-card classifier on a seeded flood map
+   against the host ``tiled_classify_flood``, both timed.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Any failure raises, so
+The run prints its length; the line before the last is a JSON object
+with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits non-zero and prints no result, as it does where CUDA is
 not available.
 """
@@ -740,7 +758,7 @@ def phase_device():
 
 def phase_kernels(dev, basin, errs):
     """Each kernel's wrapper on the card against its plain version."""
-    from descriptools_tpu_torch.ops import downslope as down
+    down = importlib.import_module("descriptools_tpu_torch.ops.downslope")
     from descriptools_tpu_torch.ops import flow
     from descriptools_tpu_torch.ops.cuda import stencil as st
     from descriptools_tpu_torch.ops.cuda import walk
@@ -914,7 +932,52 @@ def phase_slice(dev, basin):
     print(f"suite: launches {launches}; landed {int(landed.sum())} of {idx.numel()} cells")
     print(f"classify_flood: threshold {th} Fit {fit!r} Correctness {corr!r} "
           f"(identical to the plain engine); host time {classify_s:.3f} s")
+    calibrate_on_card(dev, out["hand"], basin["flood"], got, f"{ROWS}x{COLS}")
     return inputs, launches, out["hand"], got
+
+
+def wall_ms(fn, repeats=REPEATS):
+    """Median host-clock ms of ``fn`` to a synchronised card, after one
+    warm-up: for calls that read results back to the host."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def calibrate_on_card(dev, hand, flood, host, label):
+    """The one-card exact classifier and ``calibration(backend="torch")``
+    on the card against the host float64 result ``host`` of
+    ``classify_flood``: the classifier identical (threshold, Correctness,
+    Fit, class map); the float32 calibration identical to its own run on
+    the CPU, and set beside the float64 threshold."""
+    from descriptools_tpu_torch import evaluation
+    from descriptools_tpu_torch.parallel.classify import sharded_classify_flood
+
+    card = card_line()
+    flood_t = torch.as_tensor(flood, device=dev)
+    got = sharded_classify_flood(hand, flood_t)
+    if got[:3] != host[:3] or not np.array_equal(got[3].cpu().numpy(), host[3]):
+        raise AssertionError(f"sharded_classify_flood {label}: {got[:3]} vs the host's {host[:3]}")
+    one_card_ms = wall_ms(lambda: sharded_classify_flood(hand, flood_t))
+    elements = np.unique(hand.cpu().numpy())
+    desc = evaluation.min_max_scale(hand, elements[1], elements[-1])
+    desc_cpu = evaluation.min_max_scale(hand.cpu(), elements[1], elements[-1])
+    check_bitwise(f"min_max_scale {label}", desc.cpu(), desc_cpu)
+    th = evaluation.calibration(desc, flood_t, backend="torch")
+    th_cpu = evaluation.calibration(desc_cpu, flood_t.cpu(), backend="torch")
+    if th != th_cpu:
+        raise AssertionError(f"calibration(backend='torch') {label}: card {th}, CPU {th_cpu}")
+    torch_ms = wall_ms(lambda: evaluation.calibration(desc, flood_t, backend="torch"))
+    print(f"sharded_classify_flood {label} on the card: threshold, Correctness, Fit and class map identical to "
+          f"the host classify_flood; {one_card_ms:.3f} ms  [{card}]")
+    print(f"calibration(backend='torch') {label} on the card: threshold {th} (the CPU's; the host float64 "
+          f"threshold {host[0]}: {'the same' if th == host[0] else 'another'}); {torch_ms:.3f} ms  [{card}]")
 
 
 def stencil_device_time(label, fn, t, own, sass, card):
@@ -941,7 +1004,7 @@ def phase_timing(dev, inputs, card, sass):
     """Kernels beside their plain versions, then the suite, at the basin's
     shape."""
     from descriptools_tpu_torch import pipeline
-    from descriptools_tpu_torch.ops import downslope as down
+    down = importlib.import_module("descriptools_tpu_torch.ops.downslope")
     from descriptools_tpu_torch.ops import flow
     from descriptools_tpu_torch.ops.cuda import stencil as st
     from descriptools_tpu_torch.ops.cuda import walk
@@ -1021,7 +1084,7 @@ def phase_timing(dev, inputs, card, sass):
 
 def phase_tile_kernels(dev, basin, errs):
     """The tiled path's kernels against their plain versions, bitwise."""
-    from descriptools_tpu_torch.ops import downslope as down
+    down = importlib.import_module("descriptools_tpu_torch.ops.downslope")
     from descriptools_tpu_torch.ops import flow
     from descriptools_tpu_torch.ops.cuda import stencil as st
     from descriptools_tpu_torch.ops.cuda import walk
@@ -1138,8 +1201,8 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs, sass):
     """The out-of-core path at full size, a forced retry, the streaming
     calibration; pass times, link bytes, and the tile kernels against their
     plain versions on one tile's operands, checked and timed."""
-    from descriptools_tpu_torch import pipeline, tiled
-    from descriptools_tpu_torch.ops import downslope as down
+    from descriptools_tpu_torch import pipeline, tiled, verify
+    down = importlib.import_module("descriptools_tpu_torch.ops.downslope")
     from descriptools_tpu_torch.ops import flow
     from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
     from descriptools_tpu_torch.ops.cuda import stencil as st
@@ -1268,6 +1331,17 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs, sass):
         raise AssertionError(f"tiled_classify_flood {BIG}x{BIG}: Fit {fit}, map {cmap.shape}")
     print(f"tiled_classify_flood {BIG}x{BIG}: threshold {th} Fit {fit!r} Correctness {corr!r}; "
           f"host time {big_classify_s:.3f} s  [{card}]")
+
+    # The flow fixed-point invariants over every cell of the tiled outputs.
+    t0 = time.perf_counter()
+    rep = verify.streaming_flow_invariants({k: tiled._array_loader(full[k]) for k in ("dem", "fdr", "river")},
+                                           out, (BIG, BIG), cfg.px, cfg.flow_max_steps,
+                                           tile_rows=TILE, tile_cols=TILE)
+    if not rep["ok"] or rep["cells_checked"] != BIG * BIG:
+        raise AssertionError(f"verify {BIG}x{BIG}: {rep['per_check']}, examples {rep['examples']}")
+    print(f"verify.streaming_flow_invariants over the tiled {BIG}x{BIG} outputs: {rep['invariant_violations']} "
+          f"violations in {rep['cells_checked']} cells ({rep['landed_cells']} landed); host time "
+          f"{time.perf_counter() - t0:.3f} s")
     del out
 
     # Calibration at the basin's shape, ragged 1024x1024 tiles: identical
@@ -1424,7 +1498,204 @@ def phase_checkpointed(dev, card, basin, full, errs):
     return launches, {"flow_walk_blocked": t}
 
 
+def reference_script(compat, basin, device):
+    """The reference example's flow (Example/example.py:59-147) through
+    ``compat`` on ``device``: rasters and the evaluation's results."""
+    dem, fdr, river = basin["dem"].astype(np.int16), basin["fdr"], basin["river"]
+    fac = basin["fac"].astype(np.int64)
+    sl = compat.sloper(dem, 12.5, device=device).astype("float32")
+    out = dict(slope=sl)
+    sl = np.where(dem == -100, -100, np.arctan(sl / 100).astype("float32"))
+    out["twi"], out["mod_twi"] = compat.topographic_index(fac, sl, 12.5, 0.1, device=device)
+    out["downslope"] = compat.downsloper(dem, fdr, 12.5, 5, device=device)
+    out["fdist"], out["indices"], out["hand"] = compat.flow_hand_index(dem, fdr, river, 12.5, device=device)
+    out["gfi"] = compat.gfi_calculator(out["hand"], fac, out["indices"], 0.4, 0.1, 12.5, device=device)
+    out["ln_hl_h"] = compat.ln_hl_H_calculator(out["hand"], fac, 0.4, 0.1, 12.5, device=device)
+    elements = np.unique(out["hand"])
+    out["desc"] = compat.minMaxScale(out["hand"], elements[1], elements[-1], -100)
+    th = compat.calibration(out["desc"], basin["flood"], "under")
+    c, f, out["class_map"] = compat.avaliacao(compat.binary_map(out["desc"], th, "under"), basin["flood"])
+    return out, (th, c, f)
+
+
+def phase_compat(dev, basin):
+    """The reference script through ``compat`` on the card (the downslope
+    and jump-walk kernels) against the same script on the CPU."""
+    from descriptools_tpu_torch import compat
+    from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
+
+    card = card_line()
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    got, got_eval = reference_script(compat, basin, dev)
+    card_s = time.perf_counter() - t0
+    launches = launch_counters()
+    if not (launches["downslope_walk"] and launches["flow_walk"]):
+        raise AssertionError(f"compat on the card: launches {launches}")
+    t0 = time.perf_counter()
+    want, want_eval = reference_script(compat, basin, "cpu")
+    cpu_s = time.perf_counter() - t0
+    for name in ("indices", "hand", "downslope", "slope", "fdist", "desc", "class_map"):
+        check_bitwise(f"compat/{name}", torch.as_tensor(got[name]), torch.as_tensor(want[name]))
+    for name in ("twi", "mod_twi", "gfi", "ln_hl_h"):
+        check_close(f"compat/{name}", torch.as_tensor(got[name]), torch.as_tensor(want[name]))
+    if got_eval != want_eval:
+        raise AssertionError(f"compat evaluation: card {got_eval}, CPU {want_eval}")
+    print(f"compat reference script {ROWS}x{COLS} on the card (launches {launches}): equal to device='cpu' "
+          f"(indices, hand, downslope, slope, fdist, class map bitwise; threshold {got_eval[0]} Fit "
+          f"{float(got_eval[2])!r}); card {card_s:.3f} s, CPU {cpu_s:.3f} s  [{card}]")
+
+
+def phase_oracle(dev, basin):
+    """The card's suite on a crop of the basin against the float64 oracles
+    of ``oracle/core``: integers exact, floats within rtol 2e-5."""
+    from descriptools_tpu_torch import oracle, pipeline
+
+    crop = np.s_[900:1150, 400:700]
+    dem, fdr, fac, river = (basin[k][crop] for k in ("dem", "fdr", "fac", "river"))
+    cfg = pipeline.PipelineConfig()
+    out = {k: v.cpu().numpy() for k, v in pipeline.descriptor_suite(
+        *pipeline.inputs_to_torch(dem, fdr, fac, river, dev), cfg).items()}
+    fdist, idx = oracle.flow_distance_index_oracle(fdr, river, cfg.px)
+    hand = oracle.hand_oracle(dem.astype(np.int32), idx)
+    for name, want in (("indices", idx), ("hand", hand)):
+        if not np.array_equal(out[name], want):
+            raise AssertionError(f"oracle probe/{name}: {int((out[name] != want).sum())} cells differ")
+    sl_rad = out["slope_rad"].astype(np.float64)
+    rfac = oracle.river_accumulation_oracle(fac, idx)
+    floats = {
+        "slope": (oracle.slope_oracle(dem, cfg.px), 1e-3),
+        "fdist": (fdist, 1e-3),
+        "downslope": (oracle.downslope_oracle(dem, fdr, cfg.px, cfg.elevation_difference), 1e-4),
+        "twi": (oracle.topographic_index_oracle(fac, sl_rad, cfg.px), 1e-4),
+        "mod_twi": (oracle.modified_topographic_index_oracle(fac, sl_rad, cfg.px, cfg.n_topo), 1e-4),
+        "gfi": (oracle.gfi_oracle(hand, rfac, cfg.n_gfi, cfg.b_gfi, cfg.px), 1e-4),
+        "ln_hl_h": (oracle.ln_hl_h_oracle(hand, fac, cfg.n_gfi, cfg.b_gfi, cfg.px), 1e-4),
+    }
+    worst = {}
+    for name, (want, atol) in floats.items():
+        got = out[name].astype(np.float64)
+        if not np.allclose(got, want, rtol=2e-5, atol=atol, equal_nan=True):
+            raise AssertionError(f"oracle probe/{name}: outside rtol 2e-5, atol {atol}")
+        both = np.isfinite(got) & np.isfinite(want)
+        worst[name] = float(np.abs(got - want)[both].max()) if both.any() else 0.0
+    print(f"oracle probe, the card's suite on the basin crop [900:1150, 400:700]: indices and hand exact, "
+          f"{int((idx != -100).sum())} landed; floats within rtol 2e-5 (max abs err {worst})")
+
+
+SIDE = 10000  # BASELINE config 3: a 10000x10000 DEM, 1e8 cells
+RIVER_FAC = 10  # config 3's river: cells with more than this many upstream cells
+FLOOD_HAND = 5  # config 3's flood map: HAND <= this, 90 % of those cells (seeded)
+
+
+def phase_config3(dev, card):
+    """BASELINE config 3 on the card: terrain from a 10000x10000 DEM, the
+    suite through the kernels, the exact calibration on the card."""
+    from descriptools_tpu_torch import d8, pipeline, tiled
+    from descriptools_tpu_torch.ops import terrain
+    from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
+    from descriptools_tpu_torch.parallel.classify import sharded_classify_flood
+    from descriptools_tpu_torch.utils.synthetic import synthetic_dem
+
+    # Accumulation bitwise to the CPU at the basin's shape.
+    small = synthetic_dem(ROWS, COLS, seed=0).astype(np.int32)
+    got = terrain.derive_terrain(torch.as_tensor(small, device=dev))
+    want = terrain.derive_terrain(torch.as_tensor(small))
+    for name, g, w in zip(("fdr", "fac"), got, want):
+        check_bitwise(f"derive_terrain {ROWS}x{COLS} {name}", g.cpu(), w)
+    print(f"derive_terrain synthetic_dem({ROWS}, {COLS}, seed=0) on the card: fdr and fac bitwise the CPU's")
+
+    t0 = time.perf_counter()
+    dem_np = synthetic_dem(SIDE, SIDE, seed=0).astype(np.int32)
+    print(f"config 3: synthetic_dem({SIDE}, {SIDE}, seed=0) as int32 generated on the host in "
+          f"{time.perf_counter() - t0:.3f} s")
+    dem = torch.as_tensor(dem_np, device=dev)
+    n = SIDE * SIDE
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats = {}
+    fdr, fac = terrain.derive_terrain(dem, stats=stats)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    acc_ms = median_ms(lambda: terrain.flow_accumulation(fdr), 3)
+    by_activity = device_kernels_ms(lambda: terrain.flow_accumulation(fdr), calls=3)
+    top = sorted(by_activity.items(), key=lambda kv: -kv[1])[:4]
+    print("config 3 flow_accumulation, device time a call by activity (torch.profiler): "
+          + ", ".join(f"{k[:48]} {v:.3f} ms" for k, v in top)
+          + f"; all {len(by_activity)} activities {sum(by_activity.values()):.3f} ms  [{card}]")
+    d8_ms = median_ms(lambda: d8.d8_flow_direction(dem), 3)
+    print(f"config 3 derive_terrain {SIDE}x{SIDE}: d8 {d8_ms:.3f} ms, flow_accumulation {acc_ms:.3f} ms, "
+          f"{stats['rounds']} rounds, live cells entering each: {stats['live']}; "
+          f"peak device memory {peak / 2**30:.3f} GiB  [{card}]")
+
+    t0 = time.perf_counter()
+    fdr_cpu = d8.d8_flow_direction(torch.from_numpy(dem_np))
+    cpu_s = time.perf_counter() - t0
+    check_bitwise("config 3 fdr vs the CPU", fdr.cpu(), fdr_cpu)
+    del fdr_cpu
+    # The donor-sum identity over every cell: fac[c] = sum over the cells
+    # d whose D8 step lands on c of (fac[d] + 1); NoData cells hold -100.
+    succ, _, ok, _ = d8.successor(fdr, SIDE, SIDE)
+    ok = ok.reshape(-1)
+    flat = fac.reshape(-1).long()
+    donor_sum = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+        0, succ.reshape(-1)[ok].long(), flat[ok] + 1)
+    data = dem.reshape(-1) != -100
+    bad = int(((flat != donor_sum) & data).sum()) + int(((flat != -100) & ~data).sum()) + int((ok & ~data).sum())
+    if bad:
+        raise AssertionError(f"config 3: {bad} cells break the donor-sum identity")
+    del succ, ok, flat, donor_sum, data
+    print(f"config 3 fdr bitwise the CPU's d8_flow_direction ({cpu_s:.3f} s on the host); fac: 0 donor-sum "
+          f"violations over {n} cells; max fac {int(fac.max())}")
+
+    river = (fac > RIVER_FAC).to(torch.int8)
+    cfg = pipeline.PipelineConfig()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counters()
+    out = pipeline.descriptor_suite(dem, fdr, fac, river, cfg)
+    torch.cuda.synchronize()
+    launches = launch_counters()
+    if any(launches[k] == 0 for k in IN_CORE):
+        raise AssertionError(f"config 3 suite: launches {launches}")
+    suite_peak = torch.cuda.max_memory_allocated(dev)
+    suite_ms = median_ms(lambda: pipeline.descriptor_suite(dem, fdr, fac, river, cfg), 3)
+    plain = pipeline.descriptor_suite(dem, fdr, fac, river, pipeline.PipelineConfig(engine="torch"))
+    for name in BITWISE:
+        check_bitwise(f"config 3 suite/{name}", out[name], plain[name])
+    for name in CLOSE:
+        check_close(f"config 3 suite/{name}", out[name], plain[name])
+    del plain
+    landed = int((out["indices"] != -100).sum())
+    print(f"config 3 suite {SIDE}x{SIDE}, river fac > {RIVER_FAC} ({int(river.sum())} cells): launches "
+          f"{launches}; matches engine='torch' (integers, slope, downslope, fdist bitwise); {landed} landed; "
+          f"{suite_ms:.3f} ms ({n / suite_ms / 1e3:.3f} M grid-points/s), peak device memory "
+          f"{suite_peak / 2**30:.3f} GiB  [{card}]")
+
+    hand = out["hand"]
+    del out
+    rand = torch.rand(hand.shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    flood = ((hand != -100) & (hand <= FLOOD_HAND) & (rand < 0.9)).to(torch.int8)
+    del rand
+    got = sharded_classify_flood(hand, flood)
+    one_card_ms = wall_ms(lambda: sharded_classify_flood(hand, flood), 3)
+    hand_np, flood_np = hand.cpu().numpy(), flood.cpu().numpy()
+    t0 = time.perf_counter()
+    want = tiled.tiled_classify_flood(hand_np, tiled._array_loader(flood_np), (SIDE, SIDE),
+                                      tile_rows=TILE, tile_cols=TILE)
+    host_s = time.perf_counter() - t0
+    if got[:3] != want[:3] or not np.array_equal(got[3].cpu().numpy(), want[3]):
+        raise AssertionError(f"config 3 classify: card {got[:3]}, host {want[:3]}")
+    print(f"config 3 sharded_classify_flood {SIDE}x{SIDE} (flood: HAND <= {FLOOD_HAND}, 90 %, seed 0): "
+          f"threshold {got[0]} Fit {got[2]!r} Correctness {got[1]!r}, class map identical to the host "
+          f"tiled_classify_flood; card {one_card_ms:.3f} ms, host {host_s:.3f} s  [{card}]")
+    del hand, flood, dem, fdr, fac, river, got
+    torch.cuda.empty_cache()
+
+
 def main():
+    start = time.perf_counter()
     sass = phase_device()
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -1441,12 +1712,17 @@ def main():
     blocked_launches, blocked_times = phase_checkpointed(dev, card, basin, full, errs)
     launches["flow_walk_blocked"] = blocked_launches["flow_walk_blocked"]
     times.update(blocked_times)
+    del full
+    phase_compat(dev, basin)
+    phase_oracle(dev, basin)
+    phase_config3(dev, card)
     # No single PyTorch call computes any of these functions: library_ms null.
     kernels = [
         dict(name=name, route="cuda", **meta, launches=launches[name], max_abs_err=errs[name],
              **{k: times[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, library_ms=None)
         for name, meta in KERNELS.items()
     ]
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s")
     print(card)  # name and power limit, as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -205,7 +205,7 @@ def downslope_and_stages(torch, cs, dev, inputs, loaders):
     device ms, sha256}; then the in-core suite's stages on the basin,
     {stage: event ms}."""
     from descriptools_tpu_torch import pipeline, tiled
-    from descriptools_tpu_torch.ops import downslope as down
+    down = importlib.import_module("descriptools_tpu_torch.ops.downslope")
     from descriptools_tpu_torch.ops import flow
     from descriptools_tpu_torch.ops.cuda import walk
 

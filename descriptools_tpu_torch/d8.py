@@ -7,6 +7,7 @@ Conventions: (row, col) tensors; ESRI codes 1=E 2=SE 4=S 8=SW 16=W 32=NW
 64=N 128=NE; diagonal steps cost px*sqrt(2).
 """
 
+import numpy as np
 import torch
 
 from descriptools_tpu_torch.constants import D8_CODES, D8_DX, D8_DY, D8_STEP
@@ -53,6 +54,31 @@ def successor(fdr, rows, cols):
     succ = torch.where(ok, ty * cols + tx, i * cols + j).to(torch.int32)
     step = torch.where(ok, step, 0.0)
     return succ, step, ok, valid
+
+
+def d8_flow_direction(dem, nodata=-100):
+    """ESRI D8 flow-direction raster (int32) of a DEM, on the DEM's device.
+
+    Steepest descent over the 8-neighbourhood; a gradient is the drop over
+    the step length in pixels; ties go to the first direction in ESRI code
+    order (E, SE, S, SW, W, NW, N, NE).  Pits, flats and NoData cells get
+    code 0.  Each drop is divided by a 0-dim float32 tensor on the DEM's
+    device, an IEEE division as in the JAX op: PyTorch's CUDA ``div`` by a
+    Python scalar multiplies by the reciprocal, which can move a gradient
+    by an ulp and change which neighbour wins a tie.
+    """
+    dem = dem.to(torch.float32)
+    rows, cols = dem.shape
+    pad = pad1(dem, float(np.float32(nodata)))
+    best = torch.zeros(dem.shape, dtype=torch.float32, device=dem.device)
+    code_out = torch.zeros(dem.shape, dtype=torch.int32, device=dem.device)
+    for code, cdy, cdx, cs in zip(D8_CODES, D8_DY, D8_DX, D8_STEP):
+        nbr = pad[1 + cdy : 1 + cdy + rows, 1 + cdx : 1 + cdx + cols]
+        grad = (dem - nbr) / torch.tensor(np.float32(cs), device=dem.device)
+        ok = (nbr != nodata) & (grad > best)
+        best = torch.where(ok, grad, best)
+        code_out = torch.where(ok, int(code), code_out)
+    return torch.where(dem == nodata, 0, code_out)
 
 
 def pad1(arr, fill):

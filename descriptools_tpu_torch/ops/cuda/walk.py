@@ -49,7 +49,7 @@ import ctypes
 import numpy as np
 import torch
 
-from descriptools_tpu_torch.ops import downslope as _down
+from descriptools_tpu_torch.ops.downslope import _downslope_jacobi, check_max_steps, downslope_window
 from descriptools_tpu_torch.ops import flow as _flow
 from descriptools_tpu_torch.ops.cuda import build
 
@@ -74,7 +74,7 @@ def fdr_operand(fdr):
 def _downslope_args(dem_f, fdr, px, elevation_difference, max_steps):
     """Checked kernel arguments shared by both entries: (fdr, its is-int32
     flag, ed, max_steps, c_card, c_diag)."""
-    _down.check_max_steps(max_steps)
+    check_max_steps(max_steps)
     build.check_cuda_tensor(dem_f, "dem_f", torch.float32, tuple(dem_f.shape))
     fdr = fdr_operand(fdr)
     build.check_cuda_tensor(fdr, "fdr", fdr.dtype, tuple(dem_f.shape))
@@ -86,7 +86,7 @@ def _downslope_args(dem_f, fdr, px, elevation_difference, max_steps):
 def downslope_walk(dem_f, fdr, px, elevation_difference, max_steps):
     """Downslope index (float32) of a whole grid, in one launch."""
     if not dem_f.is_cuda:
-        return _down._downslope_jacobi(dem_f, fdr, px, elevation_difference, max_steps)
+        return _downslope_jacobi(dem_f, fdr, px, elevation_difference, max_steps)
     fdr, is_int32, ed, steps, c_card, c_diag = _downslope_args(
         dem_f, fdr, px, elevation_difference, max_steps)
     rows, cols = dem_f.shape
@@ -111,7 +111,7 @@ def downslope_walk_tracked(dem_f, fdr, px, elevation_difference, max_steps, row0
     ``grid_cols``).  trunc marks walks that stopped at a terminal that only
     the window's edge made (``ops.downslope.trunc_cells``)."""
     if not dem_f.is_cuda:
-        return _down.downslope_window(dem_f, fdr, px, elevation_difference, max_steps,
+        return downslope_window(dem_f, fdr, px, elevation_difference, max_steps,
                                       row0, col0, grid_rows, grid_cols, halo)
     fdr, is_int32, ed, steps, c_card, c_diag = _downslope_args(
         dem_f, fdr, px, elevation_difference, max_steps)

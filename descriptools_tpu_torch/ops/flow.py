@@ -208,3 +208,17 @@ def hand_and_river_fac(dem, fac, indices, nodata=NODATA):
     hand = torch.where((hand < 0) & (hand != nodata), 0, hand)
     river_fac = torch.where(idx != nodata, fac_at, flat_f[0].to(torch.float32))
     return hand.reshape(dem.shape), river_fac.reshape(dem.shape)
+
+
+def flow_hand_index(dem, fdr, river, px, max_steps=FLOW_MAX_STEPS, engine="auto"):
+    """Flow distance, river indices and HAND of a whole grid: the
+    reference's public ``flow_hand_index`` on tensors.
+
+    ``engine`` as ``pipeline.resolve_engine`` takes it: ``"auto"`` runs
+    the jump-walk kernel on CUDA tensors and the plain engine elsewhere.
+    Pass dem as an integer dtype for integer-exact HAND."""
+    from descriptools_tpu_torch.pipeline import resolve_engine
+
+    engine = resolve_engine(engine, fdr.device)
+    fdist, indices = flow_distance_index(fdr, river, px, max_steps=max_steps, engine=engine)
+    return fdist, indices, hand_calculator(dem, indices)

@@ -43,3 +43,8 @@ def ln_hl_h(hand, fac, exponent, scale_factor, px, nodata=NODATA):
     fac = fac.to(torch.float32)
     area = torch.where(fac == 0, 1.0, fac) * float(np.float32(px * px))
     return _ln_ratio(area, hand, exponent, scale_factor, nodata)
+
+
+def gfi_calculator(hand, fac, indices, exponent, scale_factor, px, nodata=NODATA):
+    """The reference's public GFI entry: the river-fac gather, then GFI."""
+    return gfi(hand, river_accumulation(fac, indices, nodata), exponent, scale_factor, px, nodata)

@@ -1,12 +1,115 @@
-"""Exact integer cutoff of the float64 flood calibration (numpy).
+"""Flood-map calibration and classification on the device, float64-EXACT.
 
-Copy of ``descriptools_tpu/parallel/classify.py::_integer_cutoff``, held
-bitwise to the original by the tests; the streaming calibration
-(``tiled.tiled_classify_flood``) uses it.  The rest of that module (the
-sharded classifier) waits for the multi-card layer.
+Counterpart of ``descriptools_tpu/parallel/classify.py`` on one device
+(``mesh=None``).  The reference classifies on the host: ``np.unique`` for
+min and max, float64 min-max scaling, then ~30 serial full-raster
+confusion scans (evaluation.py:5-87); ``pipeline.classify_flood`` keeps
+that float64 path.  Here:
+
+  1. the stats pass: min, second distinct min, max, the ``hand[0, 0]``
+     probe and a count of non-integer cells (exactly ``np.unique(hand)[1]``
+     and ``[-1]``: the second element is the smallest value distinct from
+     the global min);
+  2. the threshold search: HAND from an integer DEM is integer-valued, so
+     the float64 predicate ``fl64((h - mn)/(mx - mn)) <= th`` reduces to
+     ``h <= cutoff(th)`` with an integer cutoff found by host-side float64
+     bisection (``_integer_cutoff``).  ONE device pass builds the joint
+     histogram of (integer HAND value x flooded bit); every cutoff's
+     TP/FP/FN falls out of host prefix sums, so the whole coarse-to-fine
+     search costs one pass and selects the identical threshold.  Value
+     ranges wider than ``NBINS_MAX`` fall back to one counting pass a
+     search stage;
+  3. the class map (0 TN / 1 FP / 2 FN / 3 TP, evaluation.py:153-166),
+     uint8, on the device.
+
+Each block reduction is a function of its own (``_block_*``): the
+multi-card layer adds an all-reduce after each (MIN for the extrema and
+the second min, MAX for the max, SUM for the counts and histograms, and
+the corner probe from the first block), and the host part stays as it is.
+
+Spec: reference evaluation.py:5-211 via the oracle; binary_map's corner
+probe quirk (evaluation.py:111-112) is kept: when hand[0,0] is not NoData,
+cells equal to it classify as 0.
 """
 
 import numpy as np
+import torch
+
+from descriptools_tpu_torch.constants import NODATA
+from descriptools_tpu_torch.evaluation import _scalar, coarse_to_fine_search
+
+NBINS_MAX = 1 << 22  # widest HAND value range the one-pass histogram bins
+_F32_EXACT = 1 << 24  # integers above this are not exactly f32-representable
+_BIG = 3e38
+
+
+def _block_extrema(hand_blk):
+    """(min, max) of a block."""
+    return hand_blk.min(), hand_blk.max()
+
+
+def _block_second_min(hand_blk, gmin):
+    """The block's least value above the global min (3e38 if none)."""
+    return torch.where(hand_blk == gmin, _scalar(_BIG, hand_blk), hand_blk).min()
+
+
+def _block_nonint(hand_blk):
+    """Data cells of the block whose value is not an integer."""
+    data = hand_blk != NODATA
+    return (data & (hand_blk != torch.round(hand_blk))).sum()
+
+
+def _valid_mask(hand_blk, h00):
+    """binary_map's NoData handling (evaluation.py:111-112): NoData cells
+    and, when the corner is data, cells equal to it."""
+    nd = hand_blk == NODATA
+    probe_live = h00 != NODATA
+    return ~nd & ~(probe_live & (hand_blk == h00))
+
+
+def _bench01(bench_blk):
+    """benchmark 1 -> flooded, NODATA -> dry (evaluation.py:149-150)."""
+    b = bench_blk.to(torch.int32)
+    return torch.where(b == 1, 2, torch.where(b == NODATA, 0, b)) == 2
+
+
+def _block_histogram(hand_blk, bench_blk, h00, lo, nbins):
+    """Per integer HAND value ``lo + i``: valid cells and valid & flooded
+    cells (int64, ``nbins`` each), and the flooded cells of the block.
+    One ``bincount`` of the joint key ``2 i + flooded``; invalid cells go
+    to a spare bin past the end."""
+    valid = _valid_mask(hand_blk, h00)
+    flooded = _bench01(bench_blk)
+    idx = (hand_blk - _scalar(lo, hand_blk)).to(torch.int32).clamp(0, nbins - 1)
+    key = torch.where(valid, 2 * idx + flooded.to(torch.int32), 2 * nbins)
+    joint = torch.bincount(key.reshape(-1), minlength=2 * nbins + 1)
+    ht = joint[1 : 2 * nbins : 2]
+    return joint[0 : 2 * nbins : 2] + ht, ht, flooded.sum()
+
+
+def _hit(hand_blk, cut, under):
+    return hand_blk <= cut if under == "under" else hand_blk >= cut
+
+
+def _block_counts(hand_blk, bench_blk, h00, cuts, under):
+    """(len(cuts), 3) int64: TP, FP, FN of ``hand <= cut`` (``>=`` over)
+    for each cut, one cut at a time."""
+    valid = _valid_mask(hand_blk, h00)
+    flooded = _bench01(bench_blk)
+    n_fl = flooded.sum()
+    rows = []
+    for cut in torch.as_tensor(cuts, dtype=torch.float32, device=hand_blk.device):
+        pred = valid & _hit(hand_blk, cut, under)
+        tp = (pred & flooded).sum()
+        rows.append(torch.stack([tp, pred.sum() - tp, n_fl - tp]))
+    return torch.stack(rows)
+
+
+def _block_classmap(hand_blk, bench_blk, h00, cut, under):
+    pred = (_valid_mask(hand_blk, h00) & _hit(hand_blk, _scalar(cut, hand_blk), under)).to(torch.int32)
+    bench = bench_blk.to(torch.int32)
+    bnorm = torch.where(bench == 1, 2, torch.where(bench == NODATA, 0, bench))
+    return (pred + bnorm).to(torch.uint8)
 
 
 def _integer_cutoff(th, mn, mx, under):
@@ -50,3 +153,113 @@ def _integer_cutoff(th, mn, mx, under):
         else:
             lo = mid
     return hi
+
+
+def _histogram_counts(hv, ht, n_fl, lo, nbins, under):
+    """``counts_at(cuts)`` from the joint histogram: host prefix sums."""
+    cum_v = np.cumsum(hv.cpu().numpy().astype(np.int64))
+    cum_t = np.cumsum(ht.cpu().numpy().astype(np.int64))
+    n_fl = int(n_fl)
+
+    def counts_at(cuts):
+        acc = np.empty((len(cuts), 3), np.int64)  # tp, fp, fn
+        for k, cut in enumerate(cuts):
+            i = int(cut) - lo
+            if under == "under":
+                tp, pred = (
+                    (0, 0) if i < 0
+                    else (int(cum_t[min(i, nbins - 1)]), int(cum_v[min(i, nbins - 1)]))
+                )
+            else:  # v >= cut
+                below = (0, 0) if i <= 0 else (
+                    int(cum_t[min(i, nbins) - 1]),
+                    int(cum_v[min(i, nbins) - 1]),
+                )
+                tp = int(cum_t[-1]) - below[0]
+                pred = int(cum_v[-1]) - below[1]
+            acc[k] = (tp, pred - tp, n_fl - tp)
+        return acc
+
+    return counts_at
+
+
+def sharded_classify_flood(hand, flood, mesh=None, under="under", shape=None, crop=True, *,
+                           device="cuda"):
+    """Calibrate + classify a HAND raster against a flood benchmark on one
+    device, selecting the IDENTICAL float64 threshold as
+    ``pipeline.classify_flood`` with no host-side raster.
+
+    ``hand`` and ``flood`` are numpy rasters, moved to ``device`` (the card
+    unless the caller asks for ``"cpu"``; raises where no CUDA device is
+    available), or tensors, which stay where they are.  ``shape`` is the
+    real raster inside a larger staged one (pad fill NODATA; default: the
+    whole raster), and ``crop`` crops the class map to it.  Returns
+    ``(threshold, correctness, fit, class_map)``, the class map a uint8
+    tensor on the device.  ``mesh`` must be None: the multi-card layer is
+    not ported yet.
+
+    Requires integer-valued HAND (integer DEM input; the reference example
+    feeds int16) and raises otherwise, pointing at the host float path.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded_classify_flood runs on one device (mesh=None); the "
+            "multi-card layer (torch.distributed) is not ported yet"
+        )
+    if not isinstance(hand, torch.Tensor):
+        from descriptools_tpu_torch.pipeline import check_device
+
+        hand = torch.as_tensor(np.asarray(hand), device=check_device(device))
+    dev = hand.device
+    hand_s = hand.to(torch.float32)
+    flood_s = torch.as_tensor(flood, device=dev).to(torch.int32)
+    R, C = hand_s.shape
+    if R * C >= 1 << 31:
+        raise ValueError(f"grid {R}x{C} overflows int32 confusion counts")
+    rows, cols = (R, C) if shape is None else (int(s) for s in shape)
+
+    real = hand_s[:rows, :cols]
+    gmin, mx = _block_extrema(real)
+    mn2 = _block_second_min(real, gmin)
+    h00 = hand_s[0, 0]
+    stats = torch.stack([gmin, mn2, mx, _block_nonint(real).to(torch.float32)])
+    gmin, mn2, mx, nonint = stats.double().cpu().numpy()
+    if nonint != 0:
+        raise ValueError(
+            "HAND is not integer-valued; the exact sharded calibration "
+            "requires an integer DEM — use pipeline.classify_flood"
+        )
+    # np.unique(hand)[1] / [-1] (pipeline.classify_flood): the smallest
+    # value distinct from the global min, and the max.
+    mn = mn2
+    if not np.isfinite(mn) or mx <= mn or abs(mn) > _F32_EXACT or mx > _F32_EXACT:
+        raise ValueError(f"degenerate HAND value range [{mn}, {mx}]")
+
+    # Smallest real HAND value (NODATA is the min iff the raster has any).
+    lo = int(gmin if gmin != NODATA else mn2)
+    nbins = int(mx) - lo + 1
+    if nbins <= NBINS_MAX:
+        # One counting pass for the ENTIRE search: joint histogram + host
+        # prefix sums.
+        counts_at = _histogram_counts(*_block_histogram(hand_s, flood_s, h00, lo, nbins), lo, nbins, under)
+    else:
+        # Huge value ranges: one device counting pass per search stage.
+        def counts_at(cuts):
+            return _block_counts(hand_s, flood_s, h00, cuts, under).cpu().numpy()
+
+    def fits_at(values, scale):
+        cuts = [_integer_cutoff(v / scale, mn, mx, under) for v in values]
+        c = counts_at(cuts).astype(np.float64)
+        tp, fp, fn = c[:, 0], c[:, 1], c[:, 2]
+        return tp / (tp + fn + fp)
+
+    th = coarse_to_fine_search(fits_at)
+
+    cut_i = _integer_cutoff(th, mn, mx, under)
+    tp, fp, fn = counts_at([cut_i])[0].astype(np.float64)
+    correctness = tp / (fn + tp)
+    fit = tp / (tp + fn + fp)
+    class_map = _block_classmap(hand_s, flood_s, h00, float(cut_i), under)
+    if crop:
+        class_map = class_map[:rows, :cols]
+    return th, float(correctness), float(fit), class_map

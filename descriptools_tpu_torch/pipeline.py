@@ -72,6 +72,16 @@ def resolve_engine(engine, device):
     return engine
 
 
+def check_device(device):
+    """``torch.device(device)``; raises where it names CUDA and no CUDA
+    device is available, so a numpy entry point never falls back to the
+    CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA device is available")
+    return device
+
+
 _JAX_ENGINES = {"pallas": "cuda", "xla": "torch", "auto": "auto"}
 
 
@@ -243,9 +253,7 @@ def run_example(example_dir, cfg: PipelineConfig = PipelineConfig(), device="cud
     fit and class_map."""
     from descriptools_tpu_torch.io import load_example_inputs
 
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device}: no CUDA device is available")
+    device = check_device(device)
     data = load_example_inputs(example_dir)
     inputs = inputs_to_torch(data["dem"], data["fdr"], data["fac"], data["river"], device)
     out = {k: v.cpu().numpy() for k, v in descriptor_suite(*inputs, cfg).items()}

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from descriptools_tpu_torch.constants import FLOW_MAX_STEPS, NODATA
-from descriptools_tpu_torch.ops import downslope as _down
+from descriptools_tpu_torch.ops.downslope import downslope_window
 from descriptools_tpu_torch.ops.cuda import stencil as _st
 from descriptools_tpu_torch.ops.cuda import walk as _walk
 from descriptools_tpu_torch.ops.flow import dist_from_counts
@@ -446,7 +446,7 @@ def tiled_suite(loaders, shape, cfg, device, tile_rows=4096, tile_cols=4096,
         if cache is not None else loaders
     )
     run_stencil = _st.stencil_padded if engine == "cuda" else _st.stencil_padded_plain
-    run_down = _walk.downslope_walk_tracked if engine == "cuda" else _down.downslope_window
+    run_down = _walk.downslope_walk_tracked if engine == "cuda" else downslope_window
 
     def _ext_inputs(ys, xs, halo):
         """dem and fdr of a tile with a ``halo`` rim (NoData / 0 beyond

@@ -19,6 +19,8 @@ Tolerances: everything here is integer or bitwise.
   against the JAX ring phase on the same records.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,10 +31,11 @@ from descriptools_tpu.ops.downslope import trunc_cells as j_trunc_cells
 from descriptools_tpu.ops.pallas.walk import downslope_pallas
 from descriptools_tpu.parallel import boundary as jb
 from descriptools_tpu.utils.synthetic import synthetic_basin, windowed_basin
-from descriptools_tpu_torch.ops import downslope as tdown
 from descriptools_tpu_torch.parallel import boundary as tb
 from descriptools_tpu_torch.utils.synthetic import downslope_cases
 from test_torch_downslope import fused_downslope_model
+# The module: the package binds ops.downslope to the function of that name.
+tdown = importlib.import_module("descriptools_tpu_torch.ops.downslope")
 
 PX = 12.5
 

@@ -7,17 +7,20 @@ repository's conftest:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from descriptools_tpu_torch import pipeline, tiled
-from descriptools_tpu_torch.ops import downslope as down
 from descriptools_tpu_torch.ops import flow
 from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
 from descriptools_tpu_torch.ops.cuda import stencil as st
 from descriptools_tpu_torch.ops.cuda import walk
 from descriptools_tpu_torch.utils.synthetic import adversarial_dem, downslope_cases, windowed_basin
+# The module: the package binds ops.downslope to the function of that name.
+down = importlib.import_module("descriptools_tpu_torch.ops.downslope")
 
 pytestmark = pytest.mark.cuda
 
@@ -305,3 +308,47 @@ def test_checkpointed_cuda_blocked_matches_the_fused_suite(dev, basin, tmp_path)
     plain = pipeline.descriptor_suite(*inputs, pipeline.PipelineConfig(engine="torch_blocked"))
     for k in ("slope", "downslope", "fdist", "indices", "hand"):
         assert torch.equal(fused[k], plain[k]), k
+
+
+def test_terrain_on_the_card_matches_the_cpu(dev):
+    from descriptools_tpu_torch.ops import terrain
+    from descriptools_tpu_torch.utils.synthetic import synthetic_dem
+
+    dem = synthetic_dem(300, 257, seed=2).astype(np.int32)
+    got = terrain.derive_terrain(torch.as_tensor(dem, device=dev))
+    want = terrain.derive_terrain(torch.as_tensor(dem))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_calibration_on_the_card_matches_the_host(dev, basin):
+    from descriptools_tpu_torch import evaluation
+    from descriptools_tpu_torch.parallel.classify import sharded_classify_flood
+
+    inputs = pipeline.inputs_to_torch(basin["dem"], basin["fdr"], basin["fac"], basin["river"], dev)
+    hand = pipeline.descriptor_suite(*inputs)["hand"]
+    want = pipeline.classify_flood(hand, basin["flood"])
+    for got in (sharded_classify_flood(hand, torch.as_tensor(basin["flood"], device=dev)),
+                sharded_classify_flood(hand.cpu().numpy(), basin["flood"])):
+        assert got[:3] == want[:3] and got[3].is_cuda
+        assert np.array_equal(got[3].cpu().numpy(), want[3])
+    desc = evaluation.min_max_scale(hand, 0, int(hand.max()))
+    flood = torch.as_tensor(basin["flood"], device=dev)
+    assert (evaluation.calibration(desc, flood, backend="torch")
+            == evaluation.calibration(desc.cpu(), flood.cpu(), backend="torch"))
+
+
+def test_compat_on_the_card_matches_the_cpu(dev, basin):
+    from descriptools_tpu_torch import compat
+
+    dem = basin["dem"].astype(np.int16)
+    calls = (
+        lambda **d: compat.sloper(dem, 12.5, **d),
+        lambda **d: compat.downsloper(dem, basin["fdr"], 12.5, 5, **d),
+        lambda **d: compat.flow_hand_index(dem, basin["fdr"], basin["river"], 12.5, **d),
+    )
+    for call in calls:
+        got, want = call(), call(device="cpu")
+        for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)

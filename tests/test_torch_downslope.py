@@ -19,6 +19,8 @@ Two numpy models, each held bitwise:
   ``tests/test_torch_boundary.py`` holds its tracked form.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -28,9 +30,10 @@ from descriptools_tpu.ops.pallas.walk_vmem import downslope_pallas_vmem
 from descriptools_tpu.utils.synthetic import d8_from_dem, synthetic_basin
 from descriptools_tpu_torch.constants import D8_STEP
 from descriptools_tpu_torch.d8 import decode, successor
-from descriptools_tpu_torch.ops import downslope as tdown
 from descriptools_tpu_torch.ops.cuda import walk as twalk
 from descriptools_tpu_torch.utils.synthetic import downslope_cases
+# The module: the package binds ops.downslope to the function of that name.
+tdown = importlib.import_module("descriptools_tpu_torch.ops.downslope")
 
 PX = 12.5
 

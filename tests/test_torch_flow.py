@@ -16,6 +16,7 @@ bitwise against both, and its fdist and indices against the TPU kernel.
 """
 
 import functools
+import importlib
 
 import numpy as np
 import pytest
@@ -28,8 +29,9 @@ from descriptools_tpu.ops.gfi import ln_hl_h as j_ln_hl_h
 from descriptools_tpu.ops.pallas.walk_vmem import flow_pallas_vmem
 from descriptools_tpu.utils.synthetic import synthetic_basin
 from descriptools_tpu_torch.ops import flow as tflow
-from descriptools_tpu_torch.ops import gfi as tgfi
 from descriptools_tpu_torch.ops.cuda import walk as twalk
+# The module: the package binds ops.gfi to the function of that name.
+tgfi = importlib.import_module("descriptools_tpu_torch.ops.gfi")
 
 PX = 12.5
 

@@ -41,9 +41,10 @@ def test_port_imports_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'orbax', 'descriptools_tpu')]\n"
         "need = {'descriptools_tpu_torch.' + m for m in ('tiled', 'parallel.boundary', 'parallel.classify',\n"
-        "        'io', 'utils.checkpoint', '__main__')}\n"
+        "        'io', 'utils.checkpoint', '__main__', 'compat', 'verify', 'ops.terrain', 'oracle.core',\n"
+        "        'utils.provenance', 'utils.timing')}\n"
         "print(len(mods), bad, need - set(mods))\n"
-        "sys.exit(1 if bad or len(mods) < 19 or need - set(mods) else 0)\n"
+        "sys.exit(1 if bad or len(mods) < 25 or need - set(mods) else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
