@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (descriptools_tpu_torch) on one NVIDIA Hopper card.
 
-    python3 chip_smoke.py        # from the root of the repository
+    python3 chip_smoke.py            # from the root of the repository
+    python3 chip_smoke.py --cards 4  # the sharded suite over NCCL, a rank a card
 
 Phases, each printing its own lines:
 
@@ -57,6 +58,19 @@ Phases, each printing its own lines:
    torch.profiler check that the tracked downslope call is one kernel;
    ``verify.streaming_flow_invariants`` over every cell of the tiled
    outputs (0 violations);
+4b. the multi-card layer (``parallel``, torch.distributed) on one card:
+   ``sharded_suite`` at 8192x8192 (phase 4's inputs) on mesh (2, 4), eight
+   4096x2048 blocks on one rank, a world of one over NCCL, through K1, K5
+   and K6 (launch counters: blocks x attempts), held per block against
+   the in-core suite (indices, HAND, downslope, slope, fdist bitwise),
+   then ``sharded_classify_flood`` on the mesh identical to the one-card
+   classifier; stage times (CUDA events), halo and group bytes, peak
+   device memory, the flow stage by device activity; a forced downslope
+   retry past 32-column blocks on mesh (1, 8); then two gloo processes on
+   this card (``chip_smoke.py --sharded-worker <port> <rank> <world>
+   <backend> <ny> <nx> <rows> <cols>``: the staged suite with a flood
+   loader on mesh (2, 2) at the basin's shape), each holding its blocks
+   bitwise against the in-core suite;
 5. the large-grid entry point: ``descriptor_suite(engine="cuda_blocked")``
    at the basin's shape against ``engine="torch_blocked"``; then
    ``run_suite_checkpointed(engine="cuda_blocked")`` at 8192x8192 (phase
@@ -80,7 +94,8 @@ Phases, each printing its own lines:
    against the host ``tiled_classify_flood``, both timed.
 
 The run prints its length; the line before the last is a JSON object
-with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failure raises, so
+with one entry per kernel (the launches of K1, K5 and K6 are the tiled
+phase's; the sharded phase prints and checks its own); the last line is ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits non-zero and prints no result, as it does where CUDA is
 not available.
 """
@@ -97,6 +112,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROWS, COLS = 2178, 1534  # the bundled basin's shape
@@ -1377,6 +1393,282 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs, sass):
     return launches, times, full
 
 
+SHARDED_MESH = (2, 4)  # 4096x2048 blocks of the 8192x8192 grid, all on one rank
+WORKER_MESH = (2, 2)  # the two-process run: two 1089x767 blocks a rank
+WORKER_TIMEOUT_S = 300
+
+
+def sharded_hook(times):
+    """A ``stage_hook`` that records each stage's CUDA-event ms in ``times``."""
+    def hook(name, compute):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = compute()
+        stop.record()
+        times.append((name, start, stop))
+        return out
+
+    return hook
+
+
+def check_sharded_blocks(label, out, want, keys):
+    """This rank's blocks of each ShardedRaster of ``out`` against the
+    same window of the in-core rasters ``want``: BITWISE keys bitwise, the
+    rest within TRANSCENDENTAL."""
+    for name in keys:
+        for b, t in out[name].blocks.items():
+            ys, ye, xs, xe = out[name].window(b)
+            check = check_bitwise if name in BITWISE else check_close
+            check(f"{label}/{name}/block {b}", t, want[name][ys:ye, xs:xe])
+
+
+def phase_sharded(dev, card, full):
+    """The multi-card layer on one card: (a) a world of one over NCCL, mesh
+    (2, 4) at 8192x8192, through K1, K5 and K6, against the in-core suite
+    and the one-card classifier, with a forced retry through the
+    multi-block exchange; (b) two gloo processes on this card, mesh (2, 2)
+    at the basin's shape, each checking its blocks."""
+    from descriptools_tpu_torch import pipeline
+    from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
+    from descriptools_tpu_torch.ops.downslope import downslope
+    from descriptools_tpu_torch.parallel import (
+        make_mesh, multihost, sharded_downslope, sharded_flow_hand, sharded_suite)
+    from descriptools_tpu_torch.parallel.classify import sharded_classify_flood
+    from descriptools_tpu_torch.parallel.sharded import _staged
+
+    cfg = pipeline.PipelineConfig()
+    multihost.initialize(device="cuda")
+    try:
+        mesh = make_mesh(SHARDED_MESH)
+        if (mesh.backend, mesh.world, mesh.device) != ("nccl", 1, dev):
+            raise AssertionError(f"sharded: mesh {mesh}")
+        blocks = mesh.n_blocks
+        inputs = pipeline.inputs_to_torch(full["dem"], full["fdr"], full["fac"], full["river"], dev)
+        want = pipeline.descriptor_suite(*inputs, cfg)
+        # Config 3's flood map: HAND <= FLOOD_HAND, 90 % of those cells (seed 0).
+        rand = torch.rand(want["hand"].shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        flood = ((want["hand"] != -100) & (want["hand"] <= FLOOD_HAND) & (rand < 0.9)).to(torch.int32)
+        del rand
+        one_card = sharded_classify_flood(want["hand"], flood)
+        del inputs
+        # inputs_to_torch's dtypes: dem and fac int32, fdr and river as given.
+        args = (np.asarray(full["dem"], np.int32), full["fdr"], np.asarray(full["fac"], np.int32), full["river"],
+                cfg, mesh)
+        stats, stage_ms = {}, []
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counters()
+        t0 = time.perf_counter()
+        out = sharded_suite(*args, shape=(BIG, BIG), crop=False, stage_hook=sharded_hook(stage_ms),
+                            stats=stats)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = launch_counters()
+        peak = torch.cuda.max_memory_allocated(dev)
+        attempts = len(stats["downslope_attempts"])
+        expect = dict(stencil_padded=blocks, absorbing_walk=blocks, downslope_walk_tracked=blocks * attempts)
+        if any(launches[k] != n for k, n in expect.items()) or any(
+                launches[k] for k in launches if k not in expect):
+            raise AssertionError(f"sharded {BIG}x{BIG}: launches {launches}, expected {expect}")
+        check_sharded_blocks(f"sharded {BIG}x{BIG}", out, want, (*BITWISE, *CLOSE))
+        print(f"sharded_suite {BIG}x{BIG} on mesh {SHARDED_MESH} (world of one, nccl): launches {launches} "
+              f"({blocks} blocks, {attempts} downslope attempt(s)); indices, hand, downslope, slope, fdist bitwise "
+              f"the in-core suite")
+        got = sharded_classify_flood(out["hand"], flood.cpu().numpy(), mesh, shape=(BIG, BIG))
+        if got[:3] != one_card[:3] or not torch.equal(got[3], one_card[3]):
+            raise AssertionError(f"sharded classify {BIG}x{BIG}: {got[:3]} vs one card {one_card[:3]}")
+        print(f"sharded_classify_flood {BIG}x{BIG} on mesh {SHARDED_MESH} (flood: HAND <= {FLOOD_HAND}, 90 %, seed 0): "
+              f"threshold {got[0]} Fit {got[2]!r} Correctness {got[1]!r}, class map identical to the one-card "
+              "classifier")
+        del out, got, want, one_card
+        first_ms = {name: start.elapsed_time(stop) for name, start, stop in stage_ms}
+
+        # Timed: the same run again, warm.
+        stats, stage_ms = {}, []
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = sharded_suite(*args, shape=(BIG, BIG), crop=False, stage_hook=sharded_hook(stage_ms), stats=stats)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        peak = max(peak, torch.cuda.max_memory_allocated(dev))
+        ms = {name: start.elapsed_time(stop) for name, start, stop in stage_ms}
+        del out
+        print(f"time sharded_suite {BIG}x{BIG} mesh {SHARDED_MESH}: stages (CUDA events) "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+              + f"; wall {wall_s * 1e3:.3f} ms with staging from host numpy (first run {first_s * 1e3:.3f} ms, "
+              + ", ".join(f"{k} {v:.3f}" for k, v in first_ms.items()) + f"); halo strips {stats['halo_bytes']} B "
+              f"(device copies), handed to the group {stats['comm_bytes']} B in {stats['comm_calls']} calls; peak "
+              f"device memory {peak / 2**30:.3f} GiB  [{card}]")
+        # The flow stage by device activity (torch.profiler), on staged blocks.
+        staged = [_staged(a, mesh, fill) for a, fill in zip(args[:4], (-100, 0, -100, 0))]
+        flow = device_events(lambda: sharded_flow_hand(staged[0], staged[1], staged[3], staged[2], cfg.px, mesh,
+                                                       shape=(BIG, BIG), fac0=float(args[2][0, 0]), crop=False), 1)
+        flow.sort(key=lambda e: -e[1])
+        print(f"sharded flow stage {BIG}x{BIG} by device activity (one call, torch.profiler): "
+              f"{sum(us for _, us, _ in flow) / 1e3:.3f} ms in {sum(n for _, _, n in flow)} activities; top: "
+              + "; ".join(f"{k[:60]} {us / 1e3:.3f} ms x{n}" for k, us, n in flow[:6]) + f"  [{card}]")
+        del staged, flow
+
+        # Forced retry: walks of 50-200 cells east from a halo of 8 on 32-wide
+        # blocks, so the halo grows past one block.
+        cols = 256
+        prof = np.round((cols - np.arange(cols, dtype=np.float64)) ** 2 / 50.0)
+        dem_e = (500.0 + prof * np.ones((48, 1))).astype(np.float32)
+        fdr_e = np.full((48, cols), 1, np.uint8)
+        mesh18 = make_mesh((1, 8))
+        stats = {}
+        reset_launch_counters()
+        got = sharded_downslope(dem_e, fdr_e, cfg.px, 100.0, mesh18, halo=8, stats=stats)
+        torch.cuda.synchronize()
+        tracked = launch_counters()["downslope_walk_tracked"]
+        halos = [a["halo"] for a in stats["downslope_attempts"]]
+        ref = downslope(torch.as_tensor(dem_e, device=dev), torch.as_tensor(fdr_e, device=dev), cfg.px, 100.0,
+                        engine="cuda")
+        check_bitwise("sharded retry/downslope", got, ref)
+        if stats["downslope_retries"] == 0 or halos[-1] <= cols // 8 or tracked != 8 * len(halos):
+            raise AssertionError(f"sharded retry: halos {halos}, K6 launches {tracked}")
+        print(f"sharded_downslope gentle east 48x{cols} on mesh (1, 8), halo 8: {stats['downslope_retries']} retries "
+              f"(halos {halos}, past the 32-column blocks), K6 launches {tracked}; bitwise the in-core kernel")
+    finally:
+        multihost.shutdown()
+
+    # Two processes on this card over gloo: the strips and records cross
+    # through the host.  The kernel library is built already: the workers
+    # load it.
+    t0 = time.perf_counter()
+    run_workers(2, "gloo", WORKER_MESH, ROWS, COLS)
+    print(f"two gloo processes on one card, mesh {WORKER_MESH} at {ROWS}x{COLS}: both ranks' blocks bitwise the "
+          f"in-core suite (indices, hand, downslope, slope, fdist), classification identical; "
+          f"{time.perf_counter() - t0:.1f} s with start-up")
+
+
+def run_workers(world, backend, mesh_shape, rows, cols, timeout=WORKER_TIMEOUT_S):
+    """Start ``world`` copies of this script as ranks of one group
+    (``--sharded-worker``), wait at most ``timeout`` s for all, stop any
+    left, print their summary lines and raise unless every rank passed."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    args = [str(port), "", str(world), backend, *map(str, (*mesh_shape, rows, cols))]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-worker",
+                               *(str(r) if a == "" else a for a in args)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+             for r in range(world)]
+    outs = []
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or f"SHARDED WORKER {r} OK" not in out:
+            raise AssertionError(f"sharded worker {r}: rc {p.returncode}\n{out[-4000:]}")
+        for line in out.splitlines():
+            if line.startswith("sharded worker"):
+                print(line)
+
+
+def sharded_worker(port, rank, world, backend, ny, nx, rows, cols):
+    """One rank of a group of processes: the staged suite with a flood
+    loader on mesh (ny, nx) over the synthetic basin of rows x cols (each
+    rank loads only its blocks), this rank's blocks against the in-core
+    suite and the one-card classifier on its card.  gloo ranks share
+    ``cuda:0``; nccl ranks take ``cuda:<rank>``."""
+    from descriptools_tpu_torch import pipeline
+    from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
+    from descriptools_tpu_torch.parallel import make_mesh, multihost, sharded_suite, sharded_suite_staged
+    from descriptools_tpu_torch.parallel.classify import sharded_classify_flood
+    from descriptools_tpu_torch.utils.synthetic import windowed_basin
+
+    if rows % ny or cols % nx:
+        raise ValueError(f"sharded worker: {rows}x{cols} does not divide mesh {(ny, nx)}; the checks compare "
+                         "unpadded blocks")
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    multihost.initialize(f"tcp://localhost:{port}", world_size=world, rank=rank, backend=backend, device=str(dev))
+    try:
+        mesh = make_mesh((ny, nx), device=dev)
+        cfg = pipeline.PipelineConfig()
+        loaders = windowed_basin(rows, cols, seed=0)
+        stats, stage_ms = {}, []
+        reset_launch_counters()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = sharded_suite_staged(mesh, (rows, cols), loaders, cfg, crop=False, stage_hook=sharded_hook(stage_ms),
+                                   stats=stats)
+        torch.cuda.synchronize(dev)
+        wall_s = time.perf_counter() - t0
+        launches = launch_counters()
+        n = mesh.per_rank
+        if (launches["stencil_padded"], launches["absorbing_walk"]) != (n, n) or launches["downslope_walk_tracked"] < n:
+            raise AssertionError(f"rank {rank}: launches {launches}")
+        full = {k: loaders[k](0, rows, 0, cols) for k in ("dem", "fdr", "fac", "river", "flood")}
+        want = pipeline.descriptor_suite(*pipeline.inputs_to_torch(
+            full["dem"], full["fdr"], full["fac"], full["river"], dev), cfg)
+        check_sharded_blocks(f"rank {rank}", out, want, (*BITWISE, *CLOSE))
+        one_card = sharded_classify_flood(want["hand"], torch.as_tensor(full["flood"], device=dev))
+        if (out["threshold"], out["correctness"], out["fit"]) != one_card[:3]:
+            raise AssertionError(f"rank {rank}: classification {out['threshold']} vs {one_card[:3]}")
+        for b, t in out["class_map"].blocks.items():
+            ys, ye, xs, xe = out["class_map"].window(b)
+            check_bitwise(f"rank {rank}/class_map/block {b}", t, one_card[3][ys:ye, xs:xe])
+        out_th = out["threshold"]
+        del out, want, one_card
+        # Warm: the suite again, on blocks staged from the same loaders
+        # beforehand, so the stages' times leave out the first run's set-up
+        # (the library's load, the group's first transfers).
+        staged = {k: multihost.stage_padded(mesh, (rows, cols), fill, lambda ys, ye, xs, xe, a=full[k]: a[ys:ye, xs:xe],
+                                            dt)
+                  for k, fill, dt in (("dem", -100, np.int32), ("fdr", 0, np.uint8), ("river", 0, np.int8),
+                                      ("fac", -100, np.int32))}
+        warm, warm_ms = {}, []
+        torch.cuda.synchronize(dev)
+        torch.distributed.barrier()  # all ranks start together: no stage waits on a late one
+        t0 = time.perf_counter()
+        sharded_suite(staged["dem"], staged["fdr"], staged["fac"], staged["river"], cfg, mesh, shape=(rows, cols),
+                      fac0=float(full["fac"][0, 0]), crop=False, stage_hook=sharded_hook(warm_ms), stats=warm)
+        torch.cuda.synchronize(dev)
+        warm_s = time.perf_counter() - t0
+
+        def stages(records):
+            return ", ".join(f"{name} {start.elapsed_time(stop):.3f} ms" for name, start, stop in records)
+
+        print(f"sharded worker {rank}: {rows}x{cols} blocks {list(mesh.blocks)} of mesh {mesh.shape} on {mesh.device} "
+              f"over {mesh.backend}; launches { {k: v for k, v in launches.items() if v} }; first run (staged from "
+              f"the loaders) {wall_s * 1e3:.3f} ms, stages {stages(stage_ms)}; warm run {warm_s * 1e3:.3f} ms, "
+              f"stages (CUDA events) {stages(warm_ms)}; halo strips {warm['halo_bytes']} B, handed to the group "
+              f"{warm['comm_bytes']} B in {warm['comm_calls']} calls a run; threshold {out_th}  [{card_line()}]")
+    finally:
+        multihost.shutdown()
+    print(f"SHARDED WORKER {rank} OK")
+
+
+def main_cards(n):
+    """``--cards n``: the sharded suite over NCCL across n cards, one rank
+    a card, mesh (2, 4) at 8192x8192, each rank checking its blocks."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        raise SystemExit(f"chip_smoke --cards {n}: needs {n} CUDA devices")
+    start = time.perf_counter()
+    phase_device()
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    print(f"cards: {cards}")
+    t0 = time.perf_counter()
+    run_workers(n, "nccl", SHARDED_MESH, BIG, BIG, timeout=600)
+    print(f"{n} nccl processes, one a card, mesh {SHARDED_MESH} at {BIG}x{BIG}: every rank's blocks bitwise the "
+          f"in-core suite on its card (indices, hand, downslope, slope, fdist), classification identical; "
+          f"{time.perf_counter() - t0:.1f} s with start-up; run {time.perf_counter() - start:.1f} s")
+
+
 def phase_checkpointed(dev, card, basin, full, errs):
     """The large-grid entry point: the blocked engine at the basin's shape
     against its plain version, then the checkpointed suite at 8192x8192,
@@ -1709,6 +2001,7 @@ def main():
     tiled_launches, tiled_times, full = phase_tiled(dev, card, classified, hand_small, basin, errs, sass)
     launches.update({k: tiled_launches[k] for k in TILED})
     times.update(tiled_times)
+    phase_sharded(dev, card, full)
     blocked_launches, blocked_times = phase_checkpointed(dev, card, basin, full, errs)
     launches["flow_walk_blocked"] = blocked_launches["flow_walk_blocked"]
     times.update(blocked_times)
@@ -1733,4 +2026,10 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        port, rank, world, backend, *dims = sys.argv[2:]
+        sharded_worker(port, int(rank), int(world), backend, *map(int, dims))
+    elif sys.argv[1:2] == ["--cards"]:
+        main_cards(int(sys.argv[2]))
+    else:
+        main()

@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from descriptools_tpu_torch.d8 import decode
-from descriptools_tpu_torch.ops.flow import UNRES, doubling_walk
+from descriptools_tpu_torch.constants import NODATA
+from descriptools_tpu_torch.ops.flow import UNRES, dist_from_counts, doubling_walk
 
 STEP, RIVER, NAN, EXIT = 0, 1, 2, 3
 
@@ -226,3 +227,21 @@ def combine(local, solved, h, w, nx, max_steps):
 
     landed = (status == RIVER) & (a + b <= max_steps)
     return landed, a, b, ridx, rz, rfac
+
+
+def flow_rasters(dem_t, landed, a, b, ridx, rz, rfac, fac0, px):
+    """(fdist, indices, hand, river_fac) of a block from its combined records (``combine``).
+
+    fdist is formed from the total step counts by the in-core expression,
+    so it is bitwise the in-core fdist; HAND keeps the dem's dtype."""
+    shape = dem_t.shape
+    dem_flat = dem_t.reshape(-1)
+    fdist = torch.where(landed, dist_from_counts(a, b, px), float(NODATA))
+    indices = torch.where(landed, ridx, NODATA)
+    hand = torch.where(
+        (dem_flat != NODATA) & landed,
+        torch.clamp(dem_flat - rz.to(dem_flat.dtype), min=0),
+        NODATA,
+    )
+    river_fac = torch.where(landed, rfac, float(fac0))
+    return tuple(t.reshape(shape) for t in (fdist, indices, hand, river_fac))

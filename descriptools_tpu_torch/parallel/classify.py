@@ -1,7 +1,7 @@
 """Flood-map calibration and classification on the device, float64-EXACT.
 
-Counterpart of ``descriptools_tpu/parallel/classify.py`` on one device
-(``mesh=None``).  The reference classifies on the host: ``np.unique`` for
+Counterpart of ``descriptools_tpu/parallel/classify.py``, on one device
+(``mesh=None``) or over the blocks of a mesh.  The reference classifies on the host: ``np.unique`` for
 min and max, float64 min-max scaling, then ~30 serial full-raster
 confusion scans (evaluation.py:5-87); ``pipeline.classify_flood`` keeps
 that float64 path.  Here:
@@ -22,10 +22,11 @@ that float64 path.  Here:
   3. the class map (0 TN / 1 FP / 2 FN / 3 TP, evaluation.py:153-166),
      uint8, on the device.
 
-Each block reduction is a function of its own (``_block_*``): the
-multi-card layer adds an all-reduce after each (MIN for the extrema and
-the second min, MAX for the max, SUM for the counts and histograms, and
-the corner probe from the first block), and the host part stays as it is.
+Each block reduction is a function of its own (``_block_*``): the mesh
+path reduces each over a rank's blocks and adds an all-reduce after it
+(MIN for the min and the second min, MAX for the max, SUM for the counts
+and histograms) and broadcasts the corner probe from block 0's rank; the
+host part (``_search``) is shared.
 
 Spec: reference evaluation.py:5-211 via the oracle; binary_map's corner
 probe quirk (evaluation.py:111-112) is kept: when hand[0,0] is not NoData,
@@ -183,29 +184,142 @@ def _histogram_counts(hv, ht, n_fl, lo, nbins, under):
     return counts_at
 
 
+def _mesh_classify_flood(hand, flood, mesh, under, shape, crop):
+    """The mesh path: each ``_block_*`` reduced over this rank's blocks,
+    then one all-reduce (MIN for the min and, in a second round, the second
+    min; MAX for the max; SUM for the counts and histograms); ``hand[0,
+    0]`` broadcast from the rank that owns block 0.  The host part is the
+    one-device path's."""
+    import torch.distributed as dist
+
+    from descriptools_tpu_torch.parallel.mesh import ShardedRaster, all_reduce, broadcast, crop_from_mesh
+    from descriptools_tpu_torch.parallel.sharded import _resolve_shape, _staged
+
+    shape = _resolve_shape(hand, mesh, shape)
+    hand_s = _staged(hand, mesh, NODATA, np.float32)
+    flood_s = _staged(flood, mesh, NODATA, np.int32)
+    R, C = hand_s.shape
+    if R * C >= 1 << 31:
+        raise ValueError(f"grid {R}x{C} overflows int32 confusion counts")
+    rows, cols = shape
+    dev = mesh.device
+
+    def real(b):
+        """The block's cells inside the original raster (the padding must
+        not leak NODATA into the value range)."""
+        ys, _, xs, _ = hand_s.window(b)
+        return hand_s.blocks[b][: max(rows - ys, 0), : max(cols - xs, 0)]
+
+    live = [t for t in map(real, mesh.blocks) if t.numel()]
+    big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+    extrema = [_block_extrema(t) for t in live]
+    gmin = all_reduce(mesh, torch.stack([big, *(lo for lo, _ in extrema)]).min(), dist.ReduceOp.MIN)
+    mx = all_reduce(mesh, torch.stack([-big, *(hi for _, hi in extrema)]).max(), dist.ReduceOp.MAX)
+    mn2 = all_reduce(mesh, torch.stack([big, *(_block_second_min(t, gmin) for t in live)]).min(),
+                     dist.ReduceOp.MIN)
+    nonint = all_reduce(mesh, sum((_block_nonint(t) for t in live), torch.zeros((), dtype=torch.int64, device=dev)),
+                        dist.ReduceOp.SUM)
+    block0 = hand_s.blocks[0][0, 0] if 0 in hand_s.blocks else torch.zeros((), device=dev)
+    h00 = broadcast(mesh, block0, mesh.owner(0))
+    gmin, mn2, mx, nonint = torch.stack([gmin, mn2, mx, nonint.to(torch.float32)]).double().cpu().numpy()
+
+    def per_block(fn):
+        """``fn(hand block, flood block)`` summed over this rank's blocks,
+        then over the ranks."""
+        acc = sum(fn(hand_s.blocks[b], flood_s.blocks[b]) for b in mesh.blocks)
+        return all_reduce(mesh, acc, dist.ReduceOp.SUM)
+
+    def histogram(lo, nbins):
+        def joint(h, f):
+            hv, ht, n_fl = _block_histogram(h, f, h00, lo, nbins)
+            return torch.cat([hv, ht, n_fl.reshape(1)])
+
+        j = per_block(joint)
+        return j[:nbins], j[nbins : 2 * nbins], j[2 * nbins]
+
+    def counts(cuts):
+        return per_block(lambda h, f: _block_counts(h, f, h00, cuts, under)).cpu().numpy()
+
+    th, correctness, fit, cut_i = _search(gmin, mn2, mx, nonint, under, histogram, counts)
+    class_map = ShardedRaster(mesh, hand_s.shape, {
+        b: _block_classmap(hand_s.blocks[b], flood_s.blocks[b], h00, float(cut_i), under)
+        for b in mesh.blocks
+    })
+    if crop:
+        class_map = crop_from_mesh(class_map.gather(), shape)
+    return th, correctness, fit, class_map
+
+
+def _search(gmin, mn2, mx, nonint, under, histogram, counts):
+    """The host part: the integer and range checks, the coarse-to-fine
+    search over the joint histogram (``histogram(lo, nbins)`` -> (hv, ht,
+    n_fl)) or, above ``NBINS_MAX`` bins, one counting pass a search stage
+    (``counts(cuts)`` -> (len(cuts), 3) TP, FP, FN).  Returns (threshold,
+    correctness, fit, integer cutoff)."""
+    if nonint != 0:
+        raise ValueError(
+            "HAND is not integer-valued; the exact sharded calibration "
+            "requires an integer DEM — use pipeline.classify_flood"
+        )
+    # np.unique(hand)[1] / [-1] (pipeline.classify_flood): the smallest
+    # value distinct from the global min, and the max.
+    mn = mn2
+    if not np.isfinite(mn) or mx <= mn or abs(mn) > _F32_EXACT or mx > _F32_EXACT:
+        raise ValueError(f"degenerate HAND value range [{mn}, {mx}]")
+
+    # Smallest real HAND value (NODATA is the min iff the raster has any).
+    lo = int(gmin if gmin != NODATA else mn2)
+    nbins = int(mx) - lo + 1
+    if nbins <= NBINS_MAX:
+        # One counting pass for the ENTIRE search: joint histogram + host
+        # prefix sums.
+        counts_at = _histogram_counts(*histogram(lo, nbins), lo, nbins, under)
+    else:
+        # Huge value ranges: one device counting pass per search stage.
+        counts_at = counts
+
+    def fits_at(values, scale):
+        cuts = [_integer_cutoff(v / scale, mn, mx, under) for v in values]
+        c = counts_at(cuts).astype(np.float64)
+        tp, fp, fn = c[:, 0], c[:, 1], c[:, 2]
+        return tp / (tp + fn + fp)
+
+    th = coarse_to_fine_search(fits_at)
+
+    cut_i = _integer_cutoff(th, mn, mx, under)
+    tp, fp, fn = counts_at([cut_i])[0].astype(np.float64)
+    return th, float(tp / (fn + tp)), float(tp / (tp + fn + fp)), cut_i
+
+
 def sharded_classify_flood(hand, flood, mesh=None, under="under", shape=None, crop=True, *,
                            device="cuda"):
-    """Calibrate + classify a HAND raster against a flood benchmark on one
-    device, selecting the IDENTICAL float64 threshold as
-    ``pipeline.classify_flood`` with no host-side raster.
+    """Calibrate + classify a HAND raster against a flood benchmark,
+    selecting the IDENTICAL float64 threshold as ``pipeline.classify_flood``
+    with no host-side raster.  Returns ``(threshold, correctness, fit,
+    class_map)``.
 
-    ``hand`` and ``flood`` are numpy rasters, moved to ``device`` (the card
-    unless the caller asks for ``"cpu"``; raises where no CUDA device is
-    available), or tensors, which stay where they are.  ``shape`` is the
-    real raster inside a larger staged one (pad fill NODATA; default: the
-    whole raster), and ``crop`` crops the class map to it.  Returns
-    ``(threshold, correctness, fit, class_map)``, the class map a uint8
-    tensor on the device.  ``mesh`` must be None: the multi-card layer is
-    not ported yet.
+    ``mesh=None``: one device.  ``hand`` and ``flood`` are numpy rasters,
+    moved to ``device`` (the card unless the caller asks for ``"cpu"``;
+    raises where no CUDA device is available), or tensors, which stay where
+    they are.  ``shape`` is the real raster inside a larger staged one (pad
+    fill NODATA; default: the whole raster), and ``crop`` crops the class
+    map (a uint8 tensor on the device) to it.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): the blocks of this rank, from
+    numpy rasters of the global grid or ``ShardedRaster``s of the mesh
+    (``shape`` required for those); the statistics are reduced over the
+    ranks.  The class map stays a ``ShardedRaster`` with ``crop=False``,
+    and is the cropped global map on every rank with ``crop=True``.
 
     Requires integer-valued HAND (integer DEM input; the reference example
     feeds int16) and raises otherwise, pointing at the host float path.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "sharded_classify_flood runs on one device (mesh=None); the "
-            "multi-card layer (torch.distributed) is not ported yet"
-        )
+        from descriptools_tpu_torch.parallel.mesh import Mesh
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh or None, got {type(mesh).__name__}")
+        return _mesh_classify_flood(hand, flood, mesh, under, shape, crop)
     if not isinstance(hand, torch.Tensor):
         from descriptools_tpu_torch.pipeline import check_device
 
@@ -224,42 +338,12 @@ def sharded_classify_flood(hand, flood, mesh=None, under="under", shape=None, cr
     h00 = hand_s[0, 0]
     stats = torch.stack([gmin, mn2, mx, _block_nonint(real).to(torch.float32)])
     gmin, mn2, mx, nonint = stats.double().cpu().numpy()
-    if nonint != 0:
-        raise ValueError(
-            "HAND is not integer-valued; the exact sharded calibration "
-            "requires an integer DEM — use pipeline.classify_flood"
-        )
-    # np.unique(hand)[1] / [-1] (pipeline.classify_flood): the smallest
-    # value distinct from the global min, and the max.
-    mn = mn2
-    if not np.isfinite(mn) or mx <= mn or abs(mn) > _F32_EXACT or mx > _F32_EXACT:
-        raise ValueError(f"degenerate HAND value range [{mn}, {mx}]")
-
-    # Smallest real HAND value (NODATA is the min iff the raster has any).
-    lo = int(gmin if gmin != NODATA else mn2)
-    nbins = int(mx) - lo + 1
-    if nbins <= NBINS_MAX:
-        # One counting pass for the ENTIRE search: joint histogram + host
-        # prefix sums.
-        counts_at = _histogram_counts(*_block_histogram(hand_s, flood_s, h00, lo, nbins), lo, nbins, under)
-    else:
-        # Huge value ranges: one device counting pass per search stage.
-        def counts_at(cuts):
-            return _block_counts(hand_s, flood_s, h00, cuts, under).cpu().numpy()
-
-    def fits_at(values, scale):
-        cuts = [_integer_cutoff(v / scale, mn, mx, under) for v in values]
-        c = counts_at(cuts).astype(np.float64)
-        tp, fp, fn = c[:, 0], c[:, 1], c[:, 2]
-        return tp / (tp + fn + fp)
-
-    th = coarse_to_fine_search(fits_at)
-
-    cut_i = _integer_cutoff(th, mn, mx, under)
-    tp, fp, fn = counts_at([cut_i])[0].astype(np.float64)
-    correctness = tp / (fn + tp)
-    fit = tp / (tp + fn + fp)
+    th, correctness, fit, cut_i = _search(
+        gmin, mn2, mx, nonint, under,
+        lambda lo, nbins: _block_histogram(hand_s, flood_s, h00, lo, nbins),
+        lambda cuts: _block_counts(hand_s, flood_s, h00, cuts, under).cpu().numpy(),
+    )
     class_map = _block_classmap(hand_s, flood_s, h00, float(cut_i), under)
     if crop:
         class_map = class_map[:rows, :cols]
-    return th, float(correctness), float(fit), class_map
+    return th, correctness, fit, class_map

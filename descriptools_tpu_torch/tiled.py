@@ -28,7 +28,6 @@ from descriptools_tpu_torch.constants import FLOW_MAX_STEPS, NODATA
 from descriptools_tpu_torch.ops.downslope import downslope_window
 from descriptools_tpu_torch.ops.cuda import stencil as _st
 from descriptools_tpu_torch.ops.cuda import walk as _walk
-from descriptools_tpu_torch.ops.flow import dist_from_counts
 from descriptools_tpu_torch.ops.gfi import gfi as _gfi
 from descriptools_tpu_torch.ops.gfi import ln_hl_h as _ln_hl_h
 from descriptools_tpu_torch.parallel import boundary
@@ -113,24 +112,6 @@ def tile_map(fn, arrays, fills, tile_rows, tile_cols, device, halo=0, out_dtype=
     return out
 
 
-def _flow_rasters(dem_t, landed, a, b, ridx, rz, rfac, fac0, px):
-    """(fdist, indices, hand, river_fac) of a tile from its combined records.
-
-    fdist is formed from the total step counts by the in-core expression,
-    so it is bitwise the in-core fdist; HAND keeps the dem's dtype."""
-    shape = dem_t.shape
-    dem_flat = dem_t.reshape(-1)
-    fdist = torch.where(landed, dist_from_counts(a, b, px), float(NODATA))
-    indices = torch.where(landed, ridx, NODATA)
-    hand = torch.where(
-        (dem_flat != NODATA) & landed,
-        torch.clamp(dem_flat - rz.to(dem_flat.dtype), min=0),
-        NODATA,
-    )
-    river_fac = torch.where(landed, rfac, float(fac0))
-    return tuple(t.reshape(shape) for t in (fdist, indices, hand, river_fac))
-
-
 def _global_indices(ix_t, C, cols):
     """Flat indices on the padded grid (width C) -> on the real grid."""
     if C == cols:
@@ -198,7 +179,7 @@ def tiled_flow_hand(dem, fdr, river, fac, px, device, tile_rows=2048, tile_cols=
             loc = {k: v.to(device) for k, v in locals_[iy, ix].items()}
             landed, a, b, ridx, rz, rfac = boundary.combine(loc, solved, h, w, nx, max_steps)
             (dem_t,) = tile(iy, ix, padded[:1])
-            rasters = _flow_rasters(dem_t, landed, a, b, ridx, rz, rfac, fac0, px)
+            rasters = boundary.flow_rasters(dem_t, landed, a, b, ridx, rz, rfac, fac0, px)
             ys, xs = iy * h, ix * w
             ye, xe = min(ys + h, shape[0]), min(xs + w, shape[1])
             for dst, src in zip((fdist, indices, hand, river_fac), rasters):
@@ -480,7 +461,7 @@ def tiled_suite(loaders, shape, cfg, device, tile_rows=4096, tile_cols=4096,
             h, w, R, C, max_steps=max_steps, engine=engine,
         )
         landed, a, b, ridx_l, rz_l, rfac_l = boundary.combine(loc, solved_dev, h, w, nx, max_steps)
-        fdist, indices, hand, river_fac = _flow_rasters(
+        fdist, indices, hand, river_fac = boundary.flow_rasters(
             dem_t, landed, a, b, ridx_l, rz_l, rfac_l, fac0, cfg.px
         )
         dem_f_ext = dem_ext.to(torch.float32)

@@ -2,8 +2,10 @@
 
 Counterpart of ``descriptools_tpu/utils/timing.py``.  A CUDA launch returns
 before the card finishes, so ``sync`` waits for the card
-(``torch.cuda.synchronize``) and ``timeit`` times CUDA calls with CUDA
-events on the current stream; CPU calls are timed on the host clock.
+(``torch.cuda.synchronize``) and ``timeit`` times calls on the card (its
+default) with CUDA events on the current stream; calls the caller asks to
+time on the CPU are timed on the host clock, with a ``sync`` inside the
+window, as JAX's ``timeit`` blocks on every result.
 ``trace()`` records a ``torch.profiler`` trace for TensorBoard or
 chrome://tracing.
 """
@@ -27,10 +29,13 @@ def sync(tree=None):
     return tree
 
 
-def timeit(fn, *args, warmup=1, iters=3, device="cpu", **kwargs):
+def timeit(fn, *args, warmup=1, iters=3, device="cuda", **kwargs):
     """Median seconds of ``fn(*args, **kwargs)`` after ``warmup`` calls:
-    CUDA events when ``device`` is a CUDA device, else the host clock."""
-    on_cuda = torch.device(device).type == "cuda"
+    CUDA events when ``device`` is a CUDA device (raises where there is no
+    card), else the host clock up to a ``sync`` of any queued CUDA work."""
+    from descriptools_tpu_torch.pipeline import check_device
+
+    on_cuda = check_device(device).type == "cuda"
     for _ in range(warmup):
         fn(*args, **kwargs)
     sync()
@@ -47,6 +52,7 @@ def timeit(fn, *args, warmup=1, iters=3, device="cpu", **kwargs):
         else:
             t0 = time.perf_counter()
             fn(*args, **kwargs)
+            sync()
             times.append(time.perf_counter() - t0)
     return statistics.median(times)
 

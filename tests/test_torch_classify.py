@@ -126,7 +126,7 @@ def test_non_integer_hand_and_degenerate_range_raise():
 
 def test_mesh_and_missing_card_refused():
     hand, flood = _hand_flood(24, 30, seed=2, cut=5)
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(TypeError, match="Mesh"):
         tclassify.sharded_classify_flood(hand, flood, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -42,7 +42,8 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'orbax', 'descriptools_tpu')]\n"
         "need = {'descriptools_tpu_torch.' + m for m in ('tiled', 'parallel.boundary', 'parallel.classify',\n"
         "        'io', 'utils.checkpoint', '__main__', 'compat', 'verify', 'ops.terrain', 'oracle.core',\n"
-        "        'utils.provenance', 'utils.timing')}\n"
+        "        'utils.provenance', 'utils.timing', 'parallel.mesh', 'parallel.halo', 'parallel.sharded',\n"
+        "        'parallel.multihost', 'parallel.ckpt')}\n"
         "print(len(mods), bad, need - set(mods))\n"
         "sys.exit(1 if bad or len(mods) < 25 or need - set(mods) else 0)\n"
     )

@@ -38,11 +38,23 @@ def test_timeit_and_sync_on_cpu():
         time.sleep(0.01 * scale)
         return torch.ones(3) * x
 
-    t = timing.timeit(work, 2, warmup=2, iters=3, scale=1.0)
+    t = timing.timeit(work, 2, warmup=2, iters=3, device="cpu", scale=1.0)
     assert len(calls) == 5 and 0.005 < t < 1.0
     tree = {"a": torch.zeros(2)}
     assert timing.sync(tree) is tree
     assert timing.grid_points_per_second(100, 0.5) == 200
+
+
+def test_timeit_syncs_inside_the_host_clock_window(monkeypatch):
+    """On the host clock each timed call ends in a ``sync`` before the clock
+    stops, so queued CUDA work is timed, not only its launch."""
+    events = []
+    monkeypatch.setattr(timing, "sync", lambda tree=None: events.append("sync") or tree)
+    real_clock = time.perf_counter
+    monkeypatch.setattr(timing.time, "perf_counter", lambda: events.append("clock") or real_clock())
+    timing.timeit(lambda: events.append("call"), warmup=1, iters=3, device="cpu")
+    timed = events[events.index("clock"):]
+    assert timed == ["clock", "call", "sync", "clock"] * 3
 
 
 def test_timeit_on_cuda_needs_a_card():
