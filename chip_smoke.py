@@ -36,6 +36,15 @@ Phases, each printing its own lines:
    one-card exact classifier (``parallel.classify.sharded_classify_flood``)
    identical to the host ``classify_flood``, and
    ``calibration(backend="torch")`` identical to its own CPU run, timed;
+2b. the North star's parity: the suite through K2, K3 and K4 (launch
+   counters read) and the one-card classifier at 2178x1534 (phase 2's run)
+   and 4096x4096, held to the JAX package's results in
+   ``tests/data/north_star_reference.npz`` (``utils.parity.check``: sha256
+   of the inputs, indices, HAND, downslope and class map; threshold, Fit
+   and Correctness identical; each float raster within its tolerance at
+   the sampled cells, its -100/NaN/inf counts exact, its sums within the
+   bound the tolerance implies), with the largest error of each raster and
+   the suite's time at 4096x4096;
 3. timing: the suite and each kernel beside its plain version and its
    bound, median of 5 runs after one warm-up, with CUDA events, and the
    stencil's device time (torch.profiler); a torch.profiler check that the
@@ -58,6 +67,12 @@ Phases, each printing its own lines:
    torch.profiler check that the tracked downslope call is one kernel;
    ``verify.streaming_flow_invariants`` over every cell of the tiled
    outputs (0 violations);
+4c. BASELINE config 5's path (``config5_torch.run``) at 8192x8192 in
+   4096x4096 tiles in a temporary directory under ``build/``, phase 4's
+   arrays written to the memmaps: launch counters of K1, K5 and K6, the
+   sample checks against the float64 oracle, the streaming invariants,
+   the classifier, and indices, HAND, downslope, slope and fdist bitwise
+   phase 4's tiled outputs; wall, passes, link and disk rates, peak memory;
 4b. the multi-card layer (``parallel``, torch.distributed) on one card:
    ``sharded_suite`` at 8192x8192 (phase 4's inputs) on mesh (2, 4), eight
    4096x2048 blocks on one rank, a world of one over NCCL, through K1, K5
@@ -105,6 +120,7 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -156,6 +172,9 @@ BITWISE = ("indices", "hand", "downslope", "slope", "fdist")
 CLOSE = ("slope_rad", "twi", "mod_twi", "gfi", "ln_hl_h")
 BIG = 8192  # the tiled phase's grid side: 67,108,864 cells
 TILE = 4096  # the JAX package's default tile side
+NORTH_STAR = 4096  # the North star's square grid; its other is the basin's shape
+NORTH_STAR_REFERENCE = os.path.join(ROOT, "tests", "data", "north_star_reference.npz")
+CONFIG5_PROBE_BYTES = 1 << 30  # the config-5 phase's disk probe (config5_torch.py's default: 4 GiB)
 # The H100 SXM's published memory rate (NVIDIA's data sheet) at 700 W:
 # 3.35 TB/s, per ms.  The stencils' other bound is their operations: the
 # least a cell needs (``stencil_floor``, phase 0) at one operation per lane,
@@ -949,7 +968,54 @@ def phase_slice(dev, basin):
     print(f"classify_flood: threshold {th} Fit {fit!r} Correctness {corr!r} "
           f"(identical to the plain engine); host time {classify_s:.3f} s")
     calibrate_on_card(dev, out["hand"], basin["flood"], got, f"{ROWS}x{COLS}")
-    return inputs, launches, out["hand"], got
+    return inputs, launches, out, got
+
+
+def phase_north_star(dev, card, basin, small):
+    """The North star's parity: the suite through K2, K3 and K4 (launch
+    counters read) and the one-card classifier, held to the JAX package's
+    results in ``north_star_reference.npz`` (``utils.parity.check``) at
+    2178x1534 (phase 2's run) and 4096x4096; the suite's time at 4096x4096
+    (CUDA events)."""
+    from descriptools_tpu_torch import pipeline
+    from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
+    from descriptools_tpu_torch.parallel.classify import sharded_classify_flood
+    from descriptools_tpu_torch.utils import parity
+    from descriptools_tpu_torch.utils.synthetic import windowed_basin
+
+    t_phase = time.perf_counter()
+    ref = parity.load(NORTH_STAR_REFERENCE)
+    if parity.sizes(ref) != [(ROWS, COLS), (NORTH_STAR, NORTH_STAR)]:
+        raise AssertionError(f"north star: the reference holds {parity.sizes(ref)}")
+    cfg = pipeline.PipelineConfig()
+    for rows, cols in parity.sizes(ref):
+        inputs = None
+        if (rows, cols) == (ROWS, COLS):
+            arrays, out, note = basin, small, "phase 2's run"
+        else:
+            arrays = {k: f(0, rows, 0, cols) for k, f in windowed_basin(rows, cols, seed=0).items()}
+            inputs = pipeline.inputs_to_torch(arrays["dem"], arrays["fdr"], arrays["fac"], arrays["river"], dev)
+            reset_launch_counters()
+            out = pipeline.descriptor_suite(*inputs, cfg)
+            torch.cuda.synchronize()
+            launches = launch_counters()
+            if [k for k in IN_CORE if launches[k] == 0]:
+                raise AssertionError(f"north star {rows}x{cols}: launches {launches}")
+            note = f"launches {launches}"
+        classified = sharded_classify_flood(out["hand"], torch.as_tensor(arrays["flood"], device=dev))
+        report = parity.check(ref, rows, cols, arrays, {k: v.cpu().numpy() for k, v in out.items()},
+                              (*classified[:3], classified[3].cpu().numpy()))
+        errs = ", ".join(f"{k} {r['max_abs_err']:.3g} (sums {r['sum_rel_diff']:.2g})" for k, r in report.items())
+        print(f"north star {rows}x{cols} ({note}): inputs, indices, hand, downslope and class map sha256 the JAX "
+              f"reference's; threshold {classified[0]} Correctness {classified[1]!r} Fit {classified[2]!r} "
+              f"identical; largest error at the sampled cells (sums' relative difference): {errs}")
+        if inputs is not None:
+            suite_ms = median_ms(lambda: pipeline.descriptor_suite(*inputs, cfg))
+            print(f"time north star suite {rows}x{cols}: {suite_ms:.3f} ms "
+                  f"({rows * cols / suite_ms / 1e3:.3f} M grid-points/s)  [{card}]")
+        del inputs, out
+    torch.cuda.empty_cache()
+    print(f"north star phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def wall_ms(fn, repeats=REPEATS):
@@ -1249,7 +1315,7 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs, sass):
           f"writes {stats['suite_write_wait_s']:.3f} s, device_get {stats['suite_device_get_s']:.3f} s  [{card}]")
 
     t0 = time.perf_counter()
-    full = {k: loaders[k](0, BIG, 0, BIG) for k in ("dem", "fdr", "fac", "river")}
+    full = {k: loaders[k](0, BIG, 0, BIG) for k in ("dem", "fdr", "fac", "river", "flood")}
     print(f"in-core inputs {BIG}x{BIG} generated on the host in {time.perf_counter() - t0:.3f} s  [{card}]")
     inputs = pipeline.inputs_to_torch(full["dem"], full["fdr"], full["fac"], full["river"], dev)
     want = pipeline.descriptor_suite(*inputs, cfg)
@@ -1340,7 +1406,7 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs, sass):
 
     # Streaming calibration at full size (host numpy), alone.
     t0 = time.perf_counter()
-    th, corr, fit, cmap = tiled.tiled_classify_flood(out["hand"], loaders["flood"], (BIG, BIG),
+    th, corr, fit, cmap = tiled.tiled_classify_flood(out["hand"], tiled._array_loader(full["flood"]), (BIG, BIG),
                                                      tile_rows=TILE, tile_cols=TILE)
     big_classify_s = time.perf_counter() - t0
     if not (np.isfinite(fit) and cmap.shape == (BIG, BIG)):
@@ -1358,7 +1424,6 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs, sass):
     print(f"verify.streaming_flow_invariants over the tiled {BIG}x{BIG} outputs: {rep['invariant_violations']} "
           f"violations in {rep['cells_checked']} cells ({rep['landed_cells']} landed); host time "
           f"{time.perf_counter() - t0:.3f} s")
-    del out
 
     # Calibration at the basin's shape, ragged 1024x1024 tiles: identical
     # to classify_flood.
@@ -1390,7 +1455,55 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs, sass):
     halos = sorted({r["halo"] for r in stats["downslope_retry_halos"]})
     print(f"tiled retry tall north {ROWS}x{COLS}, 512 tiles, halo 8: {stats['downslope_retries']} retries "
           f"(halos {halos}); downslope, indices, hand bitwise the in-core suite")
-    return launches, times, full
+    return launches, times, full, out
+
+
+def phase_config5(dev, card, full, tiled_out):
+    """BASELINE config 5's path (``config5_torch.run``) at 8192x8192 in
+    4096x4096 tiles in a temporary directory, fed phase 4's arrays through
+    the memmaps: launch counters of K1, K5 and K6, the sample checks, the
+    streaming invariants and the classifier; indices, HAND, downslope,
+    slope and fdist bitwise phase 4's tiled outputs."""
+    import tempfile
+
+    import config5_torch
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="config5_", dir=os.path.join(ROOT, "build"))
+    try:
+        r, out, _ = config5_torch.run(BIG, TILE, 0, os.path.join(tmp, "out"), os.path.join(tmp, "inputs"), dev,
+                                      arrays=full, disk_probe_bytes=CONFIG5_PROBE_BYTES)
+        launches = {k: r["launches"].get(k, 0) for k in TILED}  # counted from 0 over the tiled suite
+        tiles = (BIG // TILE) ** 2
+        if launches["absorbing_walk"] != 2 * tiles or min(launches["stencil_padded"],
+                                                          launches["downslope_walk_tracked"]) < tiles:
+            raise AssertionError(f"config 5 {BIG}x{BIG}: launches {launches}")
+        checks = r["checks"]
+        if not r["ok"]:
+            raise AssertionError(f"config 5 {BIG}x{BIG}: {checks.get('failures')}")
+        for k in BITWISE:
+            if not np.array_equal(np.asarray(out[k]), tiled_out[k], equal_nan=out[k].dtype.kind == "f"):
+                raise AssertionError(f"config 5 {BIG}x{BIG}/{k}: differs from phase 4's tiled output")
+        if out["hand"].dtype != np.int16:
+            raise AssertionError(f"config 5: HAND is {out['hand'].dtype}, the dem's int16 expected")
+        inv, cl = checks["invariants"], checks["classification"]
+        gb = lambda b: f"{b / 1e9:.3f} GB"
+        print(f"config5 {BIG}x{BIG} in {TILE}x{TILE} tiles from memmaps: launches {launches}; indices, hand, "
+              f"downslope, slope, fdist bitwise phase 4's tiled outputs; {len(checks['windows'])} sample windows "
+              f"ok; {inv['invariant_violations']} invariant violations in {inv['cells_checked']} cells "
+              f"({inv['seconds']:.3f} s); threshold {cl['threshold']} Fit {cl['fit']!r} ({cl['seconds']:.3f} s)")
+        print(f"config5 {BIG}x{BIG}: prep {r['input_prep_seconds']:.3f} s; wall {r['wall_s']:.3f} s (passes "
+              f"{r['pass_s']}); peak device memory {r['peak_device_bytes'] / 2**30:.3f} GiB; link h2d "
+              f"{gb(r['link']['h2d_bytes'])} at {r['link']['h2d_GBps']:.3f} GB/s, d2h {gb(r['link']['d2h_bytes'])} "
+              f"at {r['link']['d2h_GBps']:.3f} GB/s; disk read {gb(r['disk']['suite_read_bytes'])}, written "
+              f"{gb(r['disk']['suite_write_bytes'])}, probe {gb(r['disk']['probe']['bytes'])} written at "
+              f"{r['disk']['probe']['write_Bps'] / 1e9:.3f} GB/s, read at {r['disk']['probe']['read_Bps'] / 1e9:.3f} "
+              f"GB/s; floor {r['floor_s']:.3f} s ({r['bound_by']}), wall/floor {r['wall_over_floor']:.2f}  [{card}]")
+        del out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"config5 phase: {time.perf_counter() - t_phase:.1f} s (sample checks {checks['sample_seconds']:.1f} s)")
 
 
 SHARDED_MESH = (2, 4)  # 4096x2048 blocks of the 8192x8192 grid, all on one rank
@@ -1995,12 +2108,16 @@ def main():
     errs = dict.fromkeys(KERNELS, 0.0)
     phase_kernels(dev, basin, errs)
     phase_tile_kernels(dev, basin, errs)
-    inputs, launches, hand_small, classified = phase_slice(dev, basin)
+    inputs, launches, small, classified = phase_slice(dev, basin)
+    phase_north_star(dev, card, basin, small)
     times = phase_timing(dev, inputs, card, sass)
     del inputs
-    tiled_launches, tiled_times, full = phase_tiled(dev, card, classified, hand_small, basin, errs, sass)
+    tiled_launches, tiled_times, full, tiled_out = phase_tiled(dev, card, classified, small["hand"], basin,
+                                                               errs, sass)
     launches.update({k: tiled_launches[k] for k in TILED})
     times.update(tiled_times)
+    phase_config5(dev, card, full, tiled_out)
+    del small, tiled_out
     phase_sharded(dev, card, full)
     blocked_launches, blocked_times = phase_checkpointed(dev, card, basin, full, errs)
     launches["flow_walk_blocked"] = blocked_launches["flow_walk_blocked"]

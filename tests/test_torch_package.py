@@ -1,8 +1,11 @@
-"""Rules of the PyTorch port's package and of chip_smoke.py.
+"""Rules of the PyTorch port's package, of chip_smoke.py and of
+config5_torch.py.
 
 - the port imports neither jax, orbax nor descriptools_tpu;
-- chip_smoke.py imports neither, fails fast without a GPU, and prints no
-  result when it fails;
+- chip_smoke.py and config5_torch.py import neither, fail fast without a
+  GPU, and print no result when they fail;
+- make_north_star_reference.py (the JAX side of the parity reference)
+  imports nothing of the port;
 - the CUDA route refuses CPU tensors and a missing compiler.
 """
 
@@ -21,6 +24,7 @@ from descriptools_tpu_torch.ops.cuda import build
 
 ROOT = Path(__file__).resolve().parents[1]
 SMOKE = ROOT / "chip_smoke.py"
+CONFIG5 = ROOT / "config5_torch.py"
 
 
 def _forbidden(name):
@@ -52,7 +56,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("path", [SMOKE, *sorted((ROOT / "descriptools_tpu_torch").rglob("*.py"))],
+@pytest.mark.parametrize("path", [SMOKE, CONFIG5, *sorted((ROOT / "descriptools_tpu_torch").rglob("*.py"))],
                          ids=lambda p: str(Path(p).relative_to(ROOT)))
 def test_sources_name_no_jax_import(path):
     tree = ast.parse(Path(path).read_text())
@@ -64,6 +68,38 @@ def test_sources_name_no_jax_import(path):
         else:
             continue
         assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_config5_imports_no_jax_at_run_time():
+    code = (
+        "import sys\n"
+        "import config5_torch\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'orbax', 'descriptools_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_reference_maker_imports_no_port():
+    tree = ast.parse((ROOT / "make_north_star_reference.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert "descriptools_tpu" in {n.split(".")[0] for n in names}
+    assert not [n for n in names if n.split(".")[0] == "descriptools_tpu_torch"], names
+
+
+def test_config5_without_gpu_fails_fast_and_prints_no_result(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: config5_torch.py would run")
+    proc = subprocess.run([sys.executable, str(CONFIG5), "--n", "64", "--tile", "32", "--out-dir",
+                           str(tmp_path / "out"), "--input-cache", str(tmp_path / "in")],
+                          cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "CONFIG5" not in proc.stdout and '"ok"' not in proc.stdout
+    assert not (tmp_path / "in").exists()  # it wrote nothing
 
 
 def test_chip_smoke_without_gpu_fails_fast_and_prints_no_result():
