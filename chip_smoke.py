@@ -2,7 +2,7 @@
 """Drive the PyTorch port (descriptools_tpu_torch) on one NVIDIA Hopper card.
 
     python3 chip_smoke.py            # from the root of the repository
-    python3 chip_smoke.py --cards 4  # the sharded suite over NCCL, a rank a card
+    python3 chip_smoke.py --cards 4  # the staged scale script over NCCL, a rank a card, and weak scaling
 
 Phases, each printing its own lines:
 
@@ -81,11 +81,16 @@ Phases, each printing its own lines:
    then ``sharded_classify_flood`` on the mesh identical to the one-card
    classifier; stage times (CUDA events), halo and group bytes, peak
    device memory, the flow stage by device activity; a forced downslope
-   retry past 32-column blocks on mesh (1, 8); then two gloo processes on
-   this card (``chip_smoke.py --sharded-worker <port> <rank> <world>
-   <backend> <ny> <nx> <rows> <cols>``: the staged suite with a flood
-   loader on mesh (2, 2) at the basin's shape), each holding its blocks
-   bitwise against the in-core suite;
+   retry past 32-column blocks on mesh (1, 8);
+4d. the scale scripts, each in processes of its own as a user runs them:
+   ``weak_scaling_torch.py --per-card 4096 --cards 1`` (a world of one
+   over NCCL on phase 4's inputs, written to memmaps) and
+   ``staged_scale_torch.py`` in its default mode on two gloo ranks on this
+   card at the basin's shape, mesh (2, 4), with checkpoints and a resume
+   (the staged suite with a flood loader, every rank's blocks against the
+   in-core suite and the one-card classifier); their JSON lines read: the
+   counted collective bytes equal to the measured, K1, K5 and K6 launched
+   once a block (K6 once a block an attempt), every check ``ok``;
 5. the large-grid entry point: ``descriptor_suite(engine="cuda_blocked")``
    at the basin's shape against ``engine="torch_blocked"``; then
    ``run_suite_checkpointed(engine="cuda_blocked")`` at 8192x8192 (phase
@@ -128,7 +133,6 @@ import time
 
 import numpy as np
 import torch
-import torch.distributed
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROWS, COLS = 2178, 1534  # the bundled basin's shape
@@ -1507,8 +1511,8 @@ def phase_config5(dev, card, full, tiled_out):
 
 
 SHARDED_MESH = (2, 4)  # 4096x2048 blocks of the 8192x8192 grid, all on one rank
-WORKER_MESH = (2, 2)  # the two-process run: two 1089x767 blocks a rank
-WORKER_TIMEOUT_S = 300
+SCALE_PER_CARD = 4096  # the weak-scaling script's share of the card in the scale scripts' phase
+SCALE_MESH = (2, 4)  # the staged script's mesh at the basin's shape: 1089x384 blocks, 2 padding columns
 
 
 def sharded_hook(times):
@@ -1540,8 +1544,8 @@ def phase_sharded(dev, card, full):
     """The multi-card layer on one card: (a) a world of one over NCCL, mesh
     (2, 4) at 8192x8192, through K1, K5 and K6, against the in-core suite
     and the one-card classifier, with a forced retry through the
-    multi-block exchange; (b) two gloo processes on this card, mesh (2, 2)
-    at the basin's shape, each checking its blocks."""
+    multi-block exchange.  Ranks in processes of their own run in phase
+    4d (``phase_scale_scripts``) and under ``--cards``."""
     from descriptools_tpu_torch import pipeline
     from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
     from descriptools_tpu_torch.ops.downslope import downslope
@@ -1649,125 +1653,115 @@ def phase_sharded(dev, card, full):
     finally:
         multihost.shutdown()
 
-    # Two processes on this card over gloo: the strips and records cross
-    # through the host.  The kernel library is built already: the workers
-    # load it.
-    t0 = time.perf_counter()
-    run_workers(2, "gloo", WORKER_MESH, ROWS, COLS)
-    print(f"two gloo processes on one card, mesh {WORKER_MESH} at {ROWS}x{COLS}: both ranks' blocks bitwise the "
-          f"in-core suite (indices, hand, downslope, slope, fdist), classification identical; "
-          f"{time.perf_counter() - t0:.1f} s with start-up")
+
+SCRIPT_TIMEOUT_S = 300
 
 
-def run_workers(world, backend, mesh_shape, rows, cols, timeout=WORKER_TIMEOUT_S):
-    """Start ``world`` copies of this script as ranks of one group
-    (``--sharded-worker``), wait at most ``timeout`` s for all, stop any
-    left, print their summary lines and raise unless every rank passed."""
-    import socket
+def run_script(argv, timeout=SCRIPT_TIMEOUT_S):
+    """Run a script at the repository's root (``[script, *args]``) as a user
+    runs it, in a process of its own; raise unless it exits 0.  Returns its
+    output and its JSON result line (the last line that is a JSON object)."""
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, argv[0]), *argv[1:]], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(argv)}: exit code {proc.returncode}\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    return proc.stdout, json.loads(lines[-1])
 
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    args = [str(port), "", str(world), backend, *map(str, (*mesh_shape, rows, cols))]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-worker",
-                               *(str(r) if a == "" else a for a in args)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT)
-             for r in range(world)]
-    outs = []
+
+def check_script_launches(label, per_rank, blocks, attempts):
+    """K1, K5 and K6 launched by a script's rank: one a block (K6 one a
+    block an attempt)."""
+    want = dict(stencil_padded=blocks, absorbing_walk=blocks, downslope_walk_tracked=blocks * attempts)
+    for r, got in enumerate(per_rank):
+        if got != want:
+            raise AssertionError(f"{label} rank {r}: launches {got}, expected {want}")
+
+
+def run_staged(argv, backend, card, timeout=SCRIPT_TIMEOUT_S):
+    """``staged_scale_torch.py`` in its default mode with ``argv`` (``--n``,
+    ``--mesh``, ``--cards``, ...), checkpoints in a temporary directory
+    under ``build/``: every rank's blocks against the in-core suite on its
+    card, the classification identical to the one-card classifier, the
+    resume saving no stage again, the counted collective bytes equal to
+    the measured, K1, K5 and K6 launched once a block (K6 once a block an
+    attempt), over ``backend``.  Prints its line."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="staged_", dir=os.path.join(ROOT, "build"))
     t0 = time.perf_counter()
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))[0])
+        _, st = run_script(["staged_scale_torch.py", *argv, "--ckpt-dir", os.path.join(tmp, "ckpt")], timeout)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0 or f"SHARDED WORKER {r} OK" not in out:
-            raise AssertionError(f"sharded worker {r}: rc {p.returncode}\n{out[-4000:]}")
-        for line in out.splitlines():
-            if line.startswith("sharded worker"):
-                print(line)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not st["ok"] or st["backend"] != backend or st["resume"]["stages_saved_again"]:
+        raise AssertionError(f"staged_scale_torch.py {' '.join(argv)}: {json.dumps(st)[:4000]}")
+    blocks = st["mesh"][0] * st["mesh"][1] // st["ranks"]
+    check_script_launches("staged_scale_torch.py", st["launches_per_rank"], blocks, st["downslope_retries"] + 1)
+    print(f"staged_scale_torch.py --n {st['grid'][0]} {st['grid'][1]} --mesh {tuple(st['mesh'])} on {st['ranks']} "
+          f"{backend} rank(s), {st['cards']} card(s): ok (every rank's blocks against the in-core suite, "
+          f"classification identical to the one-card classifier, threshold {st['classification'][0]}); staging "
+          f"{st['staging_s']:.3f} s, first run {st['first_run_s']:.3f} s with checkpoints ({st['checkpoint']['bytes']} "
+          f"B in {st['checkpoint']['files']} files), resume {st['resume']['seconds']:.3f} s saving no stage again; "
+          f"warm {st['warm_s'] * 1e3:.3f} ms, stages "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in st["warm_stage_ms"].items())
+          + f"; bytes {st['collective_bytes']} equal to the count; launches {st['launches_per_rank']}; peak GiB "
+          f"{st['peak_device_GiB_per_rank']}; {time.perf_counter() - t0:.1f} s with start-up  [{card}]")
+    return st
 
 
-def sharded_worker(port, rank, world, backend, ny, nx, rows, cols):
-    """One rank of a group of processes: the staged suite with a flood
-    loader on mesh (ny, nx) over the synthetic basin of rows x cols (each
-    rank loads only its blocks), this rank's blocks against the in-core
-    suite and the one-card classifier on its card.  gloo ranks share
-    ``cuda:0``; nccl ranks take ``cuda:<rank>``."""
-    from descriptools_tpu_torch import pipeline
-    from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
-    from descriptools_tpu_torch.parallel import make_mesh, multihost, sharded_suite, sharded_suite_staged
-    from descriptools_tpu_torch.parallel.classify import sharded_classify_flood
-    from descriptools_tpu_torch.utils.synthetic import windowed_basin
+def phase_scale_scripts(dev, card, full):
+    """The scale scripts on this card, each in processes of its own as a
+    user runs it: ``weak_scaling_torch.py`` in a world of one over NCCL at
+    4096x4096 a card (phase 4's 8192x8192 inputs written to memmaps by
+    ``config5_torch.prepare_inputs``; the script reads their top-left
+    window), then ``staged_scale_torch.py``'s default mode on two gloo
+    ranks on this card at the basin's shape, mesh (2, 4) (padded to 1536
+    columns), with checkpoints and a resume.  Each script resets the launch
+    counts before its runs and reports them: K1, K5 and K6 one a block (K6
+    one a block an attempt)."""
+    import tempfile
 
-    if rows % ny or cols % nx:
-        raise ValueError(f"sharded worker: {rows}x{cols} does not divide mesh {(ny, nx)}; the checks compare "
-                         "unpadded blocks")
-    dev = torch.device("cuda", rank if backend == "nccl" else 0)
-    multihost.initialize(f"tcp://localhost:{port}", world_size=world, rank=rank, backend=backend, device=str(dev))
+    import config5_torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="scale_", dir=os.path.join(ROOT, "build"))
     try:
-        mesh = make_mesh((ny, nx), device=dev)
-        cfg = pipeline.PipelineConfig()
-        loaders = windowed_basin(rows, cols, seed=0)
-        stats, stage_ms = {}, []
-        reset_launch_counters()
-        torch.cuda.synchronize(dev)
+        inputs = os.path.join(tmp, "inputs")
+        config5_torch.prepare_inputs(BIG, 0, inputs, arrays=full)
         t0 = time.perf_counter()
-        out = sharded_suite_staged(mesh, (rows, cols), loaders, cfg, crop=False, stage_hook=sharded_hook(stage_ms),
-                                   stats=stats)
-        torch.cuda.synchronize(dev)
-        wall_s = time.perf_counter() - t0
-        launches = launch_counters()
-        n = mesh.per_rank
-        if (launches["stencil_padded"], launches["absorbing_walk"]) != (n, n) or launches["downslope_walk_tracked"] < n:
-            raise AssertionError(f"rank {rank}: launches {launches}")
-        full = {k: loaders[k](0, rows, 0, cols) for k in ("dem", "fdr", "fac", "river", "flood")}
-        want = pipeline.descriptor_suite(*pipeline.inputs_to_torch(
-            full["dem"], full["fdr"], full["fac"], full["river"], dev), cfg)
-        check_sharded_blocks(f"rank {rank}", out, want, (*BITWISE, *CLOSE))
-        one_card = sharded_classify_flood(want["hand"], torch.as_tensor(full["flood"], device=dev))
-        if (out["threshold"], out["correctness"], out["fit"]) != one_card[:3]:
-            raise AssertionError(f"rank {rank}: classification {out['threshold']} vs {one_card[:3]}")
-        for b, t in out["class_map"].blocks.items():
-            ys, ye, xs, xe = out["class_map"].window(b)
-            check_bitwise(f"rank {rank}/class_map/block {b}", t, one_card[3][ys:ye, xs:xe])
-        out_th = out["threshold"]
-        del out, want, one_card
-        # Warm: the suite again, on blocks staged from the same loaders
-        # beforehand, so the stages' times leave out the first run's set-up
-        # (the library's load, the group's first transfers).
-        staged = {k: multihost.stage_padded(mesh, (rows, cols), fill, lambda ys, ye, xs, xe, a=full[k]: a[ys:ye, xs:xe],
-                                            dt)
-                  for k, fill, dt in (("dem", -100, np.int32), ("fdr", 0, np.uint8), ("river", 0, np.int8),
-                                      ("fac", -100, np.int32))}
-        warm, warm_ms = {}, []
-        torch.cuda.synchronize(dev)
-        torch.distributed.barrier()  # all ranks start together: no stage waits on a late one
-        t0 = time.perf_counter()
-        sharded_suite(staged["dem"], staged["fdr"], staged["fac"], staged["river"], cfg, mesh, shape=(rows, cols),
-                      fac0=float(full["fac"][0, 0]), crop=False, stage_hook=sharded_hook(warm_ms), stats=warm)
-        torch.cuda.synchronize(dev)
-        warm_s = time.perf_counter() - t0
-
-        def stages(records):
-            return ", ".join(f"{name} {start.elapsed_time(stop):.3f} ms" for name, start, stop in records)
-
-        print(f"sharded worker {rank}: {rows}x{cols} blocks {list(mesh.blocks)} of mesh {mesh.shape} on {mesh.device} "
-              f"over {mesh.backend}; launches { {k: v for k, v in launches.items() if v} }; first run (staged from "
-              f"the loaders) {wall_s * 1e3:.3f} ms, stages {stages(stage_ms)}; warm run {warm_s * 1e3:.3f} ms, "
-              f"stages (CUDA events) {stages(warm_ms)}; halo strips {warm['halo_bytes']} B, handed to the group "
-              f"{warm['comm_bytes']} B in {warm['comm_calls']} calls a run; threshold {out_th}  [{card_line()}]")
+        _, ws = run_script(["weak_scaling_torch.py", "--per-card", str(SCALE_PER_CARD), "--cards", "1", "--seed",
+                            "0", "--input-cache", inputs])
+        rows = ws["weak_scaling"]
+        row = rows[0] if len(rows) == 1 else None
+        if not ws["ok"] or row is None or (row["devices"], row["backend"], row["weak_scaling_efficiency"]) != (
+                1, "nccl", 1.0) or not row["collective_bytes_match"]:
+            raise AssertionError(f"weak_scaling_torch.py: {json.dumps(ws)[:4000]}")
+        check_script_launches("weak_scaling_torch.py", row["launches_per_run_per_rank"], row["blocks_per_rank"],
+                              len(row["downslope_halos"]))
+        ph = ", ".join(f"{k} {v['seconds'] * 1e3:.3f} ms" for k, v in row["phases"].items())
+        print(f"weak_scaling_torch.py --per-card {SCALE_PER_CARD} --cards 1 (world of one, {row['backend']}): "
+              f"{row['grid'][0]}x{row['grid'][1]} on mesh {row['mesh']}, {row['seconds'] * 1e3:.3f} ms a run "
+              f"(median of {ws['iters']}), {row['grid_points_per_s'] / 1e6:.2f} M grid-points/s; stages {ph}; null "
+              f"baseline {row['null_baseline_seconds'] * 1e3:.3f} ms; in core {row['single_device_seconds'] * 1e3:.3f} "
+              f"ms (overhead {row['decomposition_overhead_vs_single_device']:.3f}); bytes {row['collective_bytes']} "
+              f"equal to the count; launches a run {row['launches_per_run_per_rank'][0]}; peak "
+              f"{row['peak_device_GiB_per_rank'][0]:.3f} GiB; {time.perf_counter() - t0:.1f} s with start-up  "
+              f"[{card}]")
+        run_staged(["--n", str(ROWS), str(COLS), "--mesh", *map(str, SCALE_MESH), "--cards", "1", "--ranks", "2"],
+                   "gloo", card)
     finally:
-        multihost.shutdown()
-    print(f"SHARDED WORKER {rank} OK")
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"scale scripts phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main_cards(n):
-    """``--cards n``: the sharded suite over NCCL across n cards, one rank
-    a card, mesh (2, 4) at 8192x8192, each rank checking its blocks."""
+    """``--cards n``: ``staged_scale_torch.py``'s default mode over NCCL
+    across n cards, one rank a card, mesh (2, 4) at 8192x8192 (``run_staged``:
+    each rank checks its blocks, then resumes); then
+    ``weak_scaling_torch.py --per-card 8192`` over 1, 2, ... n cards."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < n:
         raise SystemExit(f"chip_smoke --cards {n}: needs {n} CUDA devices")
     start = time.perf_counter()
@@ -1775,11 +1769,18 @@ def main_cards(n):
     cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                            capture_output=True, text=True, check=True).stdout.strip().splitlines()
     print(f"cards: {cards}")
+    run_staged(["--n", str(BIG), "--mesh", *map(str, SHARDED_MESH), "--cards", str(n)], "nccl", cards[0],
+               timeout=900)
     t0 = time.perf_counter()
-    run_workers(n, "nccl", SHARDED_MESH, BIG, BIG, timeout=600)
-    print(f"{n} nccl processes, one a card, mesh {SHARDED_MESH} at {BIG}x{BIG}: every rank's blocks bitwise the "
-          f"in-core suite on its card (indices, hand, downslope, slope, fdist), classification identical; "
-          f"{time.perf_counter() - t0:.1f} s with start-up; run {time.perf_counter() - start:.1f} s")
+    out, ws = run_script(["weak_scaling_torch.py", "--per-card", str(BIG), "--cards", str(n)], timeout=1800)
+    print("\n".join(ln for ln in out.splitlines() if not ln.startswith("{")))
+    print(json.dumps(ws))
+    if not ws["ok"] or [r["devices"] for r in ws["weak_scaling"]] != [1 << k for k in range(n.bit_length())]:
+        raise AssertionError(f"weak_scaling_torch.py --cards {n}: {ws['failures']}")
+    for v in ws["conclusion"]:
+        print(f"weak scaling: {v['text']}")
+    print(f"weak_scaling_torch.py --per-card {BIG} --cards {n}: {time.perf_counter() - t0:.1f} s; run "
+          f"{time.perf_counter() - start:.1f} s")
 
 
 def phase_checkpointed(dev, card, basin, full, errs):
@@ -2119,6 +2120,7 @@ def main():
     phase_config5(dev, card, full, tiled_out)
     del small, tiled_out
     phase_sharded(dev, card, full)
+    phase_scale_scripts(dev, card, full)
     blocked_launches, blocked_times = phase_checkpointed(dev, card, basin, full, errs)
     launches["flow_walk_blocked"] = blocked_launches["flow_walk_blocked"]
     times.update(blocked_times)
@@ -2143,10 +2145,7 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--sharded-worker"]:
-        port, rank, world, backend, *dims = sys.argv[2:]
-        sharded_worker(port, int(rank), int(world), backend, *map(int, dims))
-    elif sys.argv[1:2] == ["--cards"]:
+    if sys.argv[1:2] == ["--cards"]:
         main_cards(int(sys.argv[2]))
     else:
         main()

@@ -278,6 +278,31 @@ def prepare_inputs(n, seed, cache_dir, gen_tile=4096, arrays=None, workers=1, pr
     return time.perf_counter() - t0, False
 
 
+def ensure_inputs(n, seed, cache_dir, workers=1, progress=None):
+    """Inputs of at least n x n for ``seed`` in ``cache_dir``: the files
+    already there when they hold a grid of ``seed`` at least that large
+    (a smaller grid reads their top-left window), else
+    ``prepare_inputs(n, seed, ...)`` in at most ``workers`` processes.  Returns (seconds, side of the grid
+    in the files)."""
+    meta_path = os.path.join(cache_dir, "meta.json")
+    if os.path.exists(meta_path):
+        with open(meta_path) as fh:
+            meta = json.load(fh)
+        if meta.get("done") and meta.get("seed") == seed and meta.get("n", 0) >= n:
+            return 0.0, meta["n"]
+    windows = -(-n // 4096) ** 2  # prepare_inputs' windows
+    seconds, _ = prepare_inputs(n, seed, cache_dir, workers=min(workers, windows), progress=progress)
+    return seconds, n
+
+
+def max_fac(cache_dir, rows, cols, chunk=4096):
+    """The largest fac of the top-left rows x cols window of the inputs.
+    The flow stage carries fac through float32 (``hand_and_river_fac``, the
+    ring's payload), exact below 2^24."""
+    fac = np.load(_input_path(cache_dir, "fac"), mmap_mode="r")
+    return max(int(fac[ys : min(ys + chunk, rows), :cols].max()) for ys in range(0, rows, chunk))
+
+
 def disk_loaders(cache_dir, counter=None):
     """Windowed readers of the memmaps: ``f(ys, ye, xs, xe)`` -> a view.
     ``counter`` (a dict) adds up the bytes each input's windows hold."""
@@ -292,9 +317,22 @@ def disk_loaders(cache_dir, counter=None):
     return {k: reader(k, np.load(_input_path(cache_dir, k), mmap_mode="r")) for k, _ in INPUT_SPEC}
 
 
-def sample_checks(loaders, shape, out, cfg, rng, n_windows=16, win=256):
+def draw_window(loaders, shape, rng, win=256):
+    """(ys, xs) of a random win x win window, mostly data: up to 30 draws,
+    until more than half its dem is not NoData."""
+    rows, cols = shape
+    for _ in range(30):  # the NoData corner blob covers whole windows
+        ys = int(rng.integers(0, rows - win))
+        xs = int(rng.integers(0, cols - win))
+        if (loaders["dem"](ys, ys + win, xs, xs + win) != NODATA).mean() > 0.5:
+            break
+    return ys, xs
+
+
+def sample_checks(loaders, shape, out, cfg, rng, n_windows=16, win=256, windows=None):
     """Oracle and invariant checks on ``n_windows`` random windows, with
-    the JAX script's limits."""
+    the JAX script's limits.  ``windows``: their (ys, xs), drawn beforehand
+    by ``draw_window``; by default each is drawn from ``rng`` in turn."""
     rows, cols = shape
     checks = dict(windows=[], ok=True)
 
@@ -302,14 +340,10 @@ def sample_checks(loaders, shape, out, cfg, rng, n_windows=16, win=256):
         checks["ok"] = False
         checks.setdefault("failures", []).append(msg)
 
-    for wi in range(n_windows):
-        for _ in range(30):  # the NoData corner blob covers whole windows
-            ys = int(rng.integers(0, rows - win))
-            xs = int(rng.integers(0, cols - win))
-            ye, xe = ys + win, xs + win
-            dem = loaders["dem"](ys, ye, xs, xe)
-            if (dem != NODATA).mean() > 0.5:
-                break
+    for wi in range(n_windows if windows is None else len(windows)):
+        ys, xs = draw_window(loaders, shape, rng, win) if windows is None else windows[wi]
+        ye, xe = ys + win, xs + win
+        dem = loaders["dem"](ys, ye, xs, xe)
         fac = loaders["fac"](ys, ye, xs, xe)
         river = loaders["river"](ys, ye, xs, xe)
         rec = dict(ys=ys, xs=xs)

@@ -7,13 +7,14 @@ wrote on ``make_mesh((2, 4))`` loads into the port with the same keys,
 bitwise, and the port's loads into JAX.
 
 Counterpart of ``tests/test_ckpt_sharded.py`` (worker
-``tests/mp_ckpt_worker.py``).  This file is also the worker: run as a
-script it runs ``sharded_suite_staged`` with ``ckpt_dir`` and either dies
-(exit 17) right after the named stage's checkpoint lands or runs to the
-end and checks its blocks as ``tests/test_torch_multiprocess.py`` does
-(the same tolerances: integers, downslope, slope, fdist, threshold, Fit
-and class map bitwise; the transcendental rasters within rtol 2e-5, atol
-1e-4).
+``tests/mp_ckpt_worker.py``).  This file is also the worker
+(``ranks_torch.launch`` starts it): run as a script it runs
+``sharded_suite_staged`` with ``ckpt_dir`` and either dies (exit 17) right
+after the named stage's checkpoint lands or runs to the end and checks its
+blocks with ``staged_scale_torch.check_in_core`` against the in-core suite
+and the one-card classifier (integers, river_fac, downslope, slope,
+fdist, threshold, Fit, Correctness and class map bitwise; the
+transcendental rasters within rtol 2e-5, atol 1e-4).
 """
 
 import os
@@ -22,15 +23,34 @@ import sys
 import numpy as np
 import pytest
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-import test_torch_multiprocess as mp  # noqa: E402  (the launcher and the checks)
-
 HERE = os.path.abspath(__file__)
+ROOT = os.path.dirname(os.path.dirname(HERE))
+
+
+def basin_case():
+    """The inputs every rank regenerates: 45x53 (seed 5) and a flood map of
+    HAND <= 5 from the float64 oracle."""
+    from descriptools_tpu_torch import oracle
+    from descriptools_tpu_torch.constants import NODATA
+    from descriptools_tpu_torch.pipeline import PipelineConfig
+    from descriptools_tpu_torch.utils.synthetic import synthetic_basin
+
+    dem, fdr, river, fac = synthetic_basin(45, 53, seed=5)
+    cfg = PipelineConfig()
+    _, idx = oracle.flow_distance_index_oracle(fdr, river, cfg.px)
+    hand = oracle.hand_oracle(dem.astype(np.int32), idx)
+    flood = ((hand != NODATA) & (hand <= 5)).astype(np.uint8)
+    rasters = dict(dem=dem.astype(np.int32), fdr=fdr, river=river, fac=fac.astype(np.int32), flood=flood)
+    loaders = {k: (lambda ys, ye, xs, xe, a=v: a[ys:ye, xs:xe]) for k, v in rasters.items()}
+    return rasters, loaders, cfg
 
 
 def _launch(world, ckpt_dir, kill_stage):
-    port = mp.free_port()
-    return mp.launch(lambda r: [str(port), str(r), str(world), str(ckpt_dir), kill_stage], world, script=HERE)
+    import ranks_torch
+
+    port = ranks_torch.free_port()
+    return ranks_torch.launch(lambda r: [HERE, str(port), str(r), str(world), str(ckpt_dir), kill_stage], world,
+                              240, cwd=ROOT, env=ranks_torch.child_env(ROOT))
 
 
 def _mtimes(ckpt_dir, stage):
@@ -72,7 +92,7 @@ def test_manifest_guards_mismatched_resume(tmp_path, world):
     """Resuming with another block layout fails loudly."""
     from descriptools_tpu_torch.parallel import make_mesh, sharded_suite_staged
 
-    rasters, loaders, cfg = mp.basin_case()
+    rasters, loaders, cfg = basin_case()
     del loaders["flood"]
     ckpt_dir = str(tmp_path / "ckpt")
     shape = rasters["dem"].shape
@@ -100,7 +120,7 @@ def test_loads_a_stage_the_jax_package_wrote(tmp_path, world):
     from descriptools_tpu.parallel import ckpt as jckpt
     from descriptools_tpu_torch.parallel import ckpt, make_mesh
 
-    rasters, _, _ = mp.basin_case()
+    rasters, _, _ = basin_case()
     jax_out = _flow_stage(rasters)
     path = str(tmp_path / "flow")
     jckpt.save_stage_sharded(path, jax_out)
@@ -122,7 +142,7 @@ def test_the_jax_package_loads_a_stage_the_port_wrote(tmp_path, world):
     from descriptools_tpu.parallel import make_mesh as j_make_mesh
     from descriptools_tpu_torch.parallel import ckpt, make_mesh, sharded_flow_hand
 
-    rasters, _, _ = mp.basin_case()
+    rasters, _, _ = basin_case()
     port = dict(zip(("fdist", "indices", "hand", "river_fac"), sharded_flow_hand(
         rasters["dem"], rasters["fdr"], rasters["river"], rasters["fac"], 12.5,
         make_mesh((2, 4), device="cpu"), crop=False)))
@@ -134,6 +154,9 @@ def test_the_jax_package_loads_a_stage_the_port_wrote(tmp_path, world):
 
 
 def worker(port, rank, world, ckpt_dir, kill_stage):
+    import torch
+
+    import staged_scale_torch as ss
     from descriptools_tpu_torch.parallel import ckpt, make_mesh, multihost, sharded_suite_staged
 
     if kill_stage != "-":
@@ -156,11 +179,12 @@ def worker(port, rank, world, ckpt_dir, kill_stage):
     ckpt.stage_hook = watched_hook
     multihost.initialize(f"tcp://localhost:{port}", world_size=world, rank=rank, device="cpu")
     try:
-        rasters, loaders, cfg = mp.basin_case()
+        rasters, loaders, cfg = basin_case()
         mesh = make_mesh((2, 4), device="cpu")
         out = sharded_suite_staged(mesh, rasters["dem"].shape, loaders, cfg, downslope_halo=8,
                                    crop=False, ckpt_dir=ckpt_dir)
-        mp.check_blocks(out, rasters, mesh, cfg)
+        failures = ss.check_in_core(out, loaders, rasters["dem"].shape, mesh, cfg, torch.device("cpu"))
+        assert not failures, failures
     finally:
         multihost.shutdown()
     print(f"CKPT WORKER {rank} OK ({world} processes); resumed {resumed[0]}")

@@ -1,9 +1,10 @@
-"""Rules of the PyTorch port's package, of chip_smoke.py and of
-config5_torch.py.
+"""Rules of the PyTorch port's package, of chip_smoke.py and of the
+scripts at the root (config5_torch.py, weak_scaling_torch.py,
+staged_scale_torch.py and their rank launcher ranks_torch.py).
 
 - the port imports neither jax, orbax nor descriptools_tpu;
-- chip_smoke.py and config5_torch.py import neither, fail fast without a
-  GPU, and print no result when they fail;
+- chip_smoke.py and the scripts import neither, fail fast without a GPU,
+  and print no result when they fail;
 - make_north_star_reference.py (the JAX side of the parity reference)
   imports nothing of the port;
 - the CUDA route refuses CPU tensors and a missing compiler.
@@ -25,6 +26,9 @@ from descriptools_tpu_torch.ops.cuda import build
 ROOT = Path(__file__).resolve().parents[1]
 SMOKE = ROOT / "chip_smoke.py"
 CONFIG5 = ROOT / "config5_torch.py"
+WEAK = ROOT / "weak_scaling_torch.py"
+STAGED = ROOT / "staged_scale_torch.py"
+RANKS = ROOT / "ranks_torch.py"
 
 
 def _forbidden(name):
@@ -56,7 +60,8 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("path", [SMOKE, CONFIG5, *sorted((ROOT / "descriptools_tpu_torch").rglob("*.py"))],
+@pytest.mark.parametrize("path", [SMOKE, CONFIG5, WEAK, STAGED, RANKS,
+                                  *sorted((ROOT / "descriptools_tpu_torch").rglob("*.py"))],
                          ids=lambda p: str(Path(p).relative_to(ROOT)))
 def test_sources_name_no_jax_import(path):
     tree = ast.parse(Path(path).read_text())
@@ -83,6 +88,20 @@ def test_config5_imports_no_jax_at_run_time():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("module", ["weak_scaling_torch", "staged_scale_torch", "ranks_torch"])
+def test_scale_scripts_import_no_jax_at_run_time(module):
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'orbax', 'descriptools_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_reference_maker_imports_no_port():
     tree = ast.parse((ROOT / "make_north_star_reference.py").read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
@@ -100,6 +119,22 @@ def test_config5_without_gpu_fails_fast_and_prints_no_result(tmp_path):
     assert proc.returncode != 0
     assert "CONFIG5" not in proc.stdout and '"ok"' not in proc.stdout
     assert not (tmp_path / "in").exists()  # it wrote nothing
+
+
+@pytest.mark.parametrize("argv", [
+    [str(WEAK), "--per-card", "64", "--cards", "1"],
+    [str(STAGED), "--config5", "--n", "64", "--mesh", "2", "2"],
+    [str(STAGED), "--n", "64", "--mesh", "2", "2"],
+], ids=["weak_scaling", "staged_config5", "staged_default"])
+def test_scale_scripts_without_gpu_fail_fast_and_print_no_result(argv, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would run")
+    proc = subprocess.run([sys.executable, *argv, "--input-cache", str(tmp_path / "in")]
+                          + (["--work-dir", str(tmp_path / "work")] if argv[0] == str(STAGED) else []),
+                          cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and "STAGED" not in proc.stdout
+    assert not (tmp_path / "in").exists() and not (tmp_path / "work").exists()  # it wrote nothing
 
 
 def test_chip_smoke_without_gpu_fails_fast_and_prints_no_result():
