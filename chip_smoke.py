@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the root of the repository
     python3 chip_smoke.py --cards 4  # the staged scale script over NCCL, a rank a card, and weak scaling
+    python3 chip_smoke.py --link-probes  # the host link's copy/kernel overlap probes alone
 
 Phases, each printing its own lines:
 
@@ -57,7 +58,10 @@ Phases, each printing its own lines:
    cells entering each round; the fold walk (K7) on the same four: its
    time, K (its rounds), P (the cells folded in rounds) and its device time
    by step (the jump walk, the fold start, the sort, the rounds, the host
-   read);
+   read); the JAX package's cross-check engines on the basin, plain torch
+   ops timed with CUDA events: flow ``method="doubling"`` and ``"hybrid"``
+   (indices bitwise the count engine's through K4) and downslope
+   ``method="descent"`` (within rtol 1e-4, atol 1e-5 of K3's);
 4. the out-of-core path: ``tiled_suite`` at 8192x8192 in 4096x4096 tiles
    through the tile kernels, held against the in-core suite of the same
    grid; a forced truncation retry; ``tiled_classify_flood`` against
@@ -67,12 +71,17 @@ Phases, each printing its own lines:
    torch.profiler check that the tracked downslope call is one kernel;
    ``verify.streaming_flow_invariants`` over every cell of the tiled
    outputs (0 violations);
-4c. BASELINE config 5's path (``config5_torch.run``) at 8192x8192 in
-   4096x4096 tiles in a temporary directory under ``build/``, phase 4's
-   arrays written to the memmaps: launch counters of K1, K5 and K6, the
-   sample checks against the float64 oracle, the streaming invariants,
-   the classifier, and indices, HAND, downslope, slope and fdist bitwise
-   phase 4's tiled outputs; wall, passes, link and disk rates, peak memory;
+4c. BASELINE config 5's path (``config5_torch.run`` with its defaults: the
+   four link knobs on, as in the JAX script) at 8192x8192 in 4096x4096
+   tiles in a temporary directory under ``build/``, phase 4's arrays
+   written to the memmaps: launch counters of K5 and K6 (K1 is not
+   launched: the writer thread recomputes all of its rasters), the sample
+   checks against the float64 oracle, the streaming invariants, the
+   classifier; indices, HAND, downslope, slope and fdist bitwise phase 4's
+   knob-off tiled outputs, slope_rad, TWI, mod-TWI, GFI and ln(hl/H)
+   within TRANSCENDENTAL; pass C's downloads 18 B a cell, plus one byte a
+   tile of truncation flags and the retries' downloads, printed apart;
+   wall, passes, waits, link and disk rates, peak memory;
 4b. the multi-card layer (``parallel``, torch.distributed) on one card:
    ``sharded_suite`` at 8192x8192 (phase 4's inputs) on mesh (2, 4), eight
    4096x2048 blocks on one rank, a world of one over NCCL, through K1, K5
@@ -112,6 +121,14 @@ Phases, each printing its own lines:
    the suite through K2/K3/K4 (launch counters read) against
    ``engine="torch"``; the one-card classifier on a seeded flood map
    against the host ``tiled_classify_flood``, both timed.
+
+``--link-probes`` runs only the host link's probes, on phase 4's grid:
+``tiled_suite`` at 8192x8192 with and without ``upload_in_prefetch`` under
+torch.profiler (the host-to-device copies' device time, how much of it ran
+beside kernels and beside device-to-host copies, the streams of each), and
+whether a 256 MiB upload from pageable or pinned host memory on another
+thread's stream runs beside a pageable download or beside kernels (CUDA
+events).
 
 The run prints its length; the line before the last is a JSON object
 with one entry per kernel (the launches of K1, K5 and K6 are the tiled
@@ -1165,7 +1182,36 @@ def phase_timing(dev, inputs, card, sass):
         f"({cells / suite_ms / 1e3:.3f} M grid-points/s), plain {plain_ms:.3f} ms "
         f"({cells / plain_ms / 1e3:.3f} M grid-points/s)  [{card}]"
     )
+    cross_check_engines(dem_f, fdr, river, card)
     return times
+
+
+def cross_check_engines(dem_f, fdr, river, card):
+    """The JAX package's cross-check engines (plain torch ops on the card,
+    no kernel) on the basin, held to the kernels' stages and timed (CUDA
+    events): flow ``method="doubling"`` and ``"hybrid"``, indices bitwise
+    the count engine's (K4); downslope ``method="descent"`` within JAX's
+    own jacobi-vs-descent tolerance (rtol 1e-4, atol 1e-5) of K3's."""
+    from descriptools_tpu_torch.ops import flow
+    down = importlib.import_module("descriptools_tpu_torch.ops.downslope")
+
+    count = lambda: flow.flow_distance_index(fdr, river, 12.5, engine="cuda")
+    _, idx_count = count()
+    for method in ("doubling", "hybrid"):
+        run = lambda m=method: flow.flow_distance_index(fdr, river, 12.5, method=m)
+        fd, idx = run()
+        check_bitwise(f"flow method={method}/indices", idx, idx_count)
+        print(f"time flow_distance_index(method={method!r}) {ROWS}x{COLS}: {median_ms(run):.3f} ms (count engine "
+              f"through K4: {median_ms(count):.3f} ms); indices bitwise the count engine's, fdist "
+              f"{max_abs_err(fd, count()[0]):.3g} from it  [{card}]")
+    k3 = lambda: down.downslope(dem_f, fdr, 12.5, 5.0, engine="cuda")
+    descent = lambda: down.downslope(dem_f, fdr, 12.5, 5.0, method="descent")
+    got, want = descent(), k3()
+    bad = int((~torch.isclose(got, want, rtol=1e-4, atol=1e-5, equal_nan=True)).sum())
+    if bad:
+        raise AssertionError(f"downslope method='descent': {bad} cells outside rtol 1e-4, atol 1e-5 of K3")
+    print(f"time downslope(method='descent') {ROWS}x{COLS}: {median_ms(descent):.3f} ms (K3: {median_ms(k3):.3f} "
+          f"ms); within rtol 1e-4, atol 1e-5 of K3, largest difference {max_abs_err(got, want):.3g}  [{card}]")
 
 
 def phase_tile_kernels(dev, basin, errs):
@@ -1462,12 +1508,145 @@ def phase_tiled(dev, card, classified_small, hand_small, basin, errs, sass):
     return launches, times, full, out
 
 
+def gpu_rows(trace):
+    """Device intervals (us) of a torch.profiler chrome trace, by row:
+    kernels, host-to-device and device-to-host copies; and the streams each
+    row ran on."""
+    with open(trace) as fh:
+        events = json.load(fh)["traceEvents"]
+    rows, streams = {"kernel": [], "htod": [], "dtoh": []}, {"kernel": set(), "htod": set(), "dtoh": set()}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, name = e.get("cat", ""), e.get("name", "")
+        row = ("kernel" if cat == "kernel" else "htod" if cat == "gpu_memcpy" and "HtoD" in name
+               else "dtoh" if cat == "gpu_memcpy" and "DtoH" in name else None)
+        if row:
+            rows[row].append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+            streams[row].add(e.get("args", {}).get("stream"))
+    return rows, streams
+
+
+def _union(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def overlap_us(a, b):
+    """Time (us) during which a row of ``a`` and a row of ``b`` both ran."""
+    a, b = _union(a), _union(b)
+    total, j = 0.0, 0
+    for x0, x1 in a:
+        while j < len(b) and b[j][1] <= x0:
+            j += 1
+        k = j
+        while k < len(b) and b[k][0] < x1:
+            total += min(x1, b[k][1]) - max(x0, b[k][0])
+            k += 1
+    return total
+
+
+def profiled_rows(fn):
+    """``gpu_rows`` of a torch.profiler trace of ``fn()`` (the trace file
+    under ``build/``, removed)."""
+    import tempfile
+
+    fd, trace = tempfile.mkstemp(suffix=".json", dir=os.path.join(ROOT, "build"))
+    os.close(fd)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        return gpu_rows(trace)
+    finally:
+        os.remove(trace)
+
+
+def copy_overlap(dev, card):
+    """Whether a host-to-device copy on a stream of another thread runs
+    beside a device-to-host copy, and beside kernels, of the main thread: a 256 MiB upload from pageable or from pinned host memory,
+    started with a 1 GiB pageable download and then with a run of matrix
+    products.  Each side is bracketed by CUDA events on its own stream,
+    timed from one event before both; the overlap is the intersection of
+    the two intervals."""
+    import threading
+
+    down = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    a = torch.randn(8192, 8192, device=dev)
+    main = torch.cuda.current_stream(dev)
+    for pinned in (False, True):
+        host = torch.empty(1 << 28, dtype=torch.uint8, pin_memory=pinned)
+        side = torch.cuda.Stream(dev)
+        for beside, work in (("a pageable download", lambda: down.cpu()),
+                             ("matrix products", lambda: [a @ a for _ in range(40)])):
+            ev = {k: torch.cuda.Event(enable_timing=True) for k in ("t0", "up0", "up1", "w0", "w1")}
+
+            def up():
+                with torch.cuda.stream(side):
+                    ev["up0"].record(side)
+                    host.to(dev, non_blocking=pinned)
+                    ev["up1"].record(side)
+                side.synchronize()
+
+            torch.cuda.synchronize(dev)
+            ev["t0"].record(main)
+            th = threading.Thread(target=up)
+            th.start()
+            ev["w0"].record(main)
+            work()
+            ev["w1"].record(main)
+            th.join()
+            torch.cuda.synchronize(dev)
+            at = {k: ev["t0"].elapsed_time(e) for k, e in ev.items() if k != "t0"}
+            both = max(0.0, min(at["up1"], at["w1"]) - max(at["up0"], at["w0"]))
+            print(f"copy overlap: a 256 MiB upload from {'pinned' if pinned else 'pageable'} host memory on another "
+                  f"thread's stream, {at['up0']:.3f}-{at['up1']:.3f} ms, beside {beside} on the main stream, "
+                  f"{at['w0']:.3f}-{at['w1']:.3f} ms: together {both:.3f} ms  [{card}]")
+    del down, a
+
+
+def upload_overlap(dev, card, full):
+    """``tiled_suite`` at 8192x8192 in 4096x4096 tiles (phase 4's arrays)
+    under torch.profiler, with and without ``upload_in_prefetch``: the
+    host-to-device copies' device time, and how much of it ran while a
+    kernel or a device-to-host copy ran, with the streams of each row."""
+    from descriptools_tpu_torch import pipeline, tiled
+
+    loaders = {k: tiled._array_loader(full[k]) for k in ("dem", "fdr", "river", "fac")}
+    for knob in (False, True):
+        rows, streams = profiled_rows(lambda: tiled.tiled_suite(
+            loaders, (BIG, BIG), pipeline.PipelineConfig(), dev, tile_rows=TILE, tile_cols=TILE,
+            upload_in_prefetch=knob))
+        if not rows["htod"] or not rows["kernel"]:
+            raise AssertionError(f"upload overlap: the trace holds no copies or kernels: {len(rows['htod'])}, "
+                                 f"{len(rows['kernel'])}")
+        ms = lambda us: f"{us / 1e3:.3f}"
+        htod = sum(b - a for a, b in rows["htod"])
+        print(f"upload_in_prefetch={knob} {BIG}x{BIG} in {TILE}x{TILE} tiles (pageable host memory): host-to-device "
+              f"copies {ms(htod)} ms of device time in {len(rows['htod'])} copies on streams "
+              f"{sorted(streams['htod'], key=str)}, of it {ms(overlap_us(rows['htod'], rows['kernel']))} ms beside "
+              f"kernels (streams {sorted(streams['kernel'], key=str)}) and "
+              f"{ms(overlap_us(rows['htod'], rows['dtoh']))} ms beside device-to-host copies; kernels "
+              f"{ms(sum(b - a for a, b in rows['kernel']))} ms, device-to-host "
+              f"{ms(sum(b - a for a, b in rows['dtoh']))} ms  [{card}]")
+
+
 def phase_config5(dev, card, full, tiled_out):
-    """BASELINE config 5's path (``config5_torch.run``) at 8192x8192 in
-    4096x4096 tiles in a temporary directory, fed phase 4's arrays through
-    the memmaps: launch counters of K1, K5 and K6, the sample checks, the
-    streaming invariants and the classifier; indices, HAND, downslope,
-    slope and fdist bitwise phase 4's tiled outputs."""
+    """BASELINE config 5's path (``config5_torch.run``, the link knobs on
+    as by default) at 8192x8192 in 4096x4096 tiles in a temporary
+    directory, fed phase 4's arrays through the memmaps: launch counters of
+    K1, K5 and K6, the sample checks, the streaming invariants and the
+    classifier; indices, HAND, downslope, slope and fdist bitwise phase 4's
+    knob-off tiled outputs, the rest within TRANSCENDENTAL; K1 not
+    launched (the writer thread recomputes all of its rasters); pass C's
+    downloads 18 B a cell, the truncation flags and retries apart."""
     import tempfile
 
     import config5_torch
@@ -1480,23 +1659,42 @@ def phase_config5(dev, card, full, tiled_out):
                                       arrays=full, disk_probe_bytes=CONFIG5_PROBE_BYTES)
         launches = {k: r["launches"].get(k, 0) for k in TILED}  # counted from 0 over the tiled suite
         tiles = (BIG // TILE) ** 2
-        if launches["absorbing_walk"] != 2 * tiles or min(launches["stencil_padded"],
-                                                          launches["downslope_walk_tracked"]) < tiles:
+        # With the knobs on, the writer thread recomputes all of the
+        # stencil's rasters, and pass C does not run it.
+        if (launches["absorbing_walk"] != 2 * tiles or launches["downslope_walk_tracked"] < tiles
+                or launches["stencil_padded"]):
             raise AssertionError(f"config 5 {BIG}x{BIG}: launches {launches}")
         checks = r["checks"]
         if not r["ok"]:
             raise AssertionError(f"config 5 {BIG}x{BIG}: {checks.get('failures')}")
+        knobs = {k: r[k] for k in config5_torch.KNOB_BYTES_PER_CELL}
+        if not all(knobs.values()) or r["download_bytes_per_cell"] != 18:
+            raise AssertionError(f"config 5 {BIG}x{BIG}: knobs {knobs}, {r['download_bytes_per_cell']} B a cell")
         for k in BITWISE:
             if not np.array_equal(np.asarray(out[k]), tiled_out[k], equal_nan=out[k].dtype.kind == "f"):
                 raise AssertionError(f"config 5 {BIG}x{BIG}/{k}: differs from phase 4's tiled output")
+        for k in CLOSE:
+            check_close(f"config 5 {BIG}x{BIG}/{k}", torch.as_tensor(np.asarray(out[k]), device=dev),
+                        torch.as_tensor(tiled_out[k], device=dev))
         if out["hand"].dtype != np.int16:
             raise AssertionError(f"config 5: HAND is {out['hand'].dtype}, the dem's int16 expected")
+        # Pass C downloads 18 B a cell, one byte a tile (the truncation
+        # flag), and a retry's interior downslope and its flag.
+        flags, retries = tiles, len(r["downslope_retry_halos"]) * (TILE * TILE * 4 + 1)
+        c_d2h = r["d2h_bytes_by_pass"]["C"]
+        if c_d2h != 18 * BIG * BIG + flags + retries:
+            raise AssertionError(f"config 5 {BIG}x{BIG}: pass C downloaded {c_d2h} B, not 18 B a cell "
+                                 f"+ {flags} + {retries}")
         inv, cl = checks["invariants"], checks["classification"]
         gb = lambda b: f"{b / 1e9:.3f} GB"
-        print(f"config5 {BIG}x{BIG} in {TILE}x{TILE} tiles from memmaps: launches {launches}; indices, hand, "
-              f"downslope, slope, fdist bitwise phase 4's tiled outputs; {len(checks['windows'])} sample windows "
+        print(f"config5 {BIG}x{BIG} in {TILE}x{TILE} tiles from memmaps, knobs {knobs}: launches {launches}; indices, "
+              f"hand, downslope, slope, fdist bitwise phase 4's knob-off tiled outputs, slope_rad, twi, mod_twi, gfi, "
+              f"ln_hl_h within {TRANSCENDENTAL}; {len(checks['windows'])} sample windows "
               f"ok; {inv['invariant_violations']} invariant violations in {inv['cells_checked']} cells "
               f"({inv['seconds']:.3f} s); threshold {cl['threshold']} Fit {cl['fit']!r} ({cl['seconds']:.3f} s)")
+        print(f"config5 {BIG}x{BIG}: pass C downloaded {c_d2h} B = 18 B x {BIG * BIG} cells + {flags} B of "
+              f"truncation flags + {retries} B of {len(r['downslope_retry_halos'])} retries; waits "
+              f"{r['host_waits_s']}; writer thread {r['writer_s']}")
         print(f"config5 {BIG}x{BIG}: prep {r['input_prep_seconds']:.3f} s; wall {r['wall_s']:.3f} s (passes "
               f"{r['pass_s']}); peak device memory {r['peak_device_bytes'] / 2**30:.3f} GiB; link h2d "
               f"{gb(r['link']['h2d_bytes'])} at {r['link']['h2d_GBps']:.3f} GB/s, d2h {gb(r['link']['d2h_bytes'])} "
@@ -2144,8 +2342,24 @@ def main():
     }))
 
 
+def main_link_probes():
+    """``--link-probes``: the host link's probes alone, on phase 4's grid
+    (``upload_overlap``, ``copy_overlap``); no kernel is checked."""
+    from descriptools_tpu_torch.utils.synthetic import windowed_basin
+
+    phase_device()
+    dev, card = torch.device("cuda", 0), card_line()
+    loaders = windowed_basin(BIG, BIG, seed=0)
+    full = {k: loaders[k](0, BIG, 0, BIG) for k in ("dem", "fdr", "fac", "river")}
+    upload_overlap(dev, card, full)
+    copy_overlap(dev, card)
+    print(card)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cards"]:
         main_cards(int(sys.argv[2]))
+    elif sys.argv[1:] == ["--link-probes"]:
+        main_link_probes()
     else:
         main()

@@ -20,14 +20,22 @@ Steps:
    up to 8 processes; its seconds are reported apart from the run;
 1. ``tiled.tiled_suite`` over windowed memmap readers (no input cache: the
    inputs already are memmaps), outputs streamed to memmaps in
-   ``--out-dir``: passes A and C run the absorbing walk, pass C the padded
-   stencil and the tracked downslope walk, one launch of each a tile (the
-   result's ``launches``: the kernels' launch counters over the run);
+   ``--out-dir``: passes A and C run the absorbing walk, pass C the tracked
+   downslope walk, one launch of each a tile (the result's ``launches``:
+   the kernels' launch counters over the run).  As in the JAX script, the
+   four link knobs are on unless a ``--no-*`` flag turns one off: pass C
+   downloads 18 B a cell instead of 38 (slope, slope_rad, TWI, mod-TWI,
+   GFI and ln(hl/H) are recomputed on the writer thread from river_fac and
+   the input windows, so the padded stencil is not run), and the prefetch
+   thread uploads each tile's inputs.  With ``--no-host-slope``,
+   ``--no-host-slope-rad`` or ``--no-host-pointwise`` pass C launches the
+   padded stencil once a tile;
 2. sample checks: sixteen 256x256 windows against the float64 oracle
    (slope and TWI abs 1e-3, downslope abs 1e-3 on untruncated cells, fdist
    rel 2e-4, indices exact in global flat coordinates, HAND =
    max(dem - dem[idx], 0) exact);
-3. ``verify.streaming_flow_invariants`` over every cell (0 violations);
+3. ``verify.streaming_flow_invariants`` over every cell (0 violations;
+   ``--skip-verify`` leaves it out);
 4. ``tiled.tiled_classify_flood`` over the HAND memmap, and the class map's
    benchmark bit on three windows;
 5. accounting: the bytes each pass moved over the host link at the link's
@@ -74,6 +82,10 @@ OUTPUT_FILES = ("slope", "slope_rad", "twi", "mod_twi", "downslope", "fdist",
                 "indices", "hand", "gfi", "ln_hl_h", "class_map")
 PROBE_FILE = "_disk_probe.bin"
 GIB = 1 << 30
+# The link knobs of ``tiled.tiled_suite`` and the bytes a cell each takes off
+# pass C's 38 B/cell of downloads (the JAX script's accounting):
+# host_pointwise drops four float32 rasters and adds the 4 B/cell river_fac.
+KNOB_BYTES_PER_CELL = dict(host_slope_rad=4, upload_in_prefetch=0, host_pointwise=12, host_slope=4)
 
 
 def card_line():
@@ -487,12 +499,24 @@ def link_accounting(link):
                 floor_s=seconds)
 
 
+def download_bytes_per_cell(**knobs):
+    """Pass C's download bytes a cell with ``knobs`` on: 38 less what each
+    knob drops (``KNOB_BYTES_PER_CELL``)."""
+    return OUTPUT_BYTES_PER_CELL - sum(KNOB_BYTES_PER_CELL[k] for k, on in knobs.items() if on)
+
+
 def run(n, tile, seed, out_dir, input_cache, device, arrays=None, prep_workers=1,
-        disk_probe_bytes=4 * GIB, progress=None):
+        disk_probe_bytes=4 * GIB, progress=None, engine="auto", skip_verify=False,
+        host_slope_rad=True, upload_in_prefetch=True, host_pointwise=True, host_slope=True):
     """Config 5 end to end at n x n in ``tile``-sided tiles on ``device``
-    (the kernels on a CUDA device, their plain versions on the CPU).
-    Returns (result, out, loaders): the result dict (printed as JSON by
-    ``main``), the output memmaps and the disk loaders."""
+    (the kernels on a CUDA device, their plain versions on the CPU), with
+    ``engine`` and the four link knobs passed to ``tiled.tiled_suite`` (on
+    by default, as in the JAX script); ``skip_verify`` leaves out the
+    streaming invariants.  Returns (result, out, loaders): the result dict
+    (printed as JSON by ``main``), the output memmaps and the disk
+    loaders."""
+    knobs = dict(host_slope_rad=host_slope_rad, upload_in_prefetch=upload_in_prefetch,
+                 host_pointwise=host_pointwise, host_slope=host_slope)
     device = pipeline.check_device(device)
     shape, cells = (n, n), n * n
     os.makedirs(out_dir, exist_ok=True)
@@ -511,7 +535,7 @@ def run(n, tile, seed, out_dir, input_cache, device, arrays=None, prep_workers=1
     reset_launch_counters()
     t0 = time.perf_counter()
     out = tiled.tiled_suite(loaders, shape, cfg, device, tile_rows=tile, tile_cols=tile, out_dir=out_dir,
-                            cache_inputs=False, stats=stats, progress=progress)
+                            engine=engine, cache_inputs=False, stats=stats, progress=progress, **knobs)
     for a in out.values():
         a.flush()
     wall = time.perf_counter() - t0
@@ -524,16 +548,17 @@ def run(n, tile, seed, out_dir, input_cache, device, arrays=None, prep_workers=1
     checks = sample_checks(loaders, shape, out, cfg, rng)
     checks["sample_seconds"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    inv = verify.streaming_flow_invariants(loaders, out, shape, cfg.px, cfg.flow_max_steps,
-                                           tile_rows=tile, tile_cols=tile, progress=progress)
-    inv["seconds"] = time.perf_counter() - t0
-    checks["invariants"] = inv
-    if not inv["ok"] or inv["cells_checked"] != cells:
-        checks["ok"] = False
-        checks.setdefault("failures", []).append(
-            f"{inv['invariant_violations']} streaming invariant violations over {inv['cells_checked']} cells"
-        )
+    if not skip_verify:
+        t0 = time.perf_counter()
+        inv = verify.streaming_flow_invariants(loaders, out, shape, cfg.px, cfg.flow_max_steps,
+                                               tile_rows=tile, tile_cols=tile, progress=progress)
+        inv["seconds"] = time.perf_counter() - t0
+        checks["invariants"] = inv
+        if not inv["ok"] or inv["cells_checked"] != cells:
+            checks["ok"] = False
+            checks.setdefault("failures", []).append(
+                f"{inv['invariant_violations']} streaming invariant violations over {inv['cells_checked']} cells"
+            )
     classify(out, loaders, shape, tile, out_dir, rng, checks, progress=progress)
 
     rates = disk_rates(out_dir, disk_probe_bytes)
@@ -559,8 +584,13 @@ def run(n, tile, seed, out_dir, input_cache, device, arrays=None, prep_workers=1
         wall_s=wall,
         grid_points_per_s=cells / wall,
         pass_s=stats["pass_s"],
+        **knobs,
+        download_bytes_per_cell=download_bytes_per_cell(**knobs),
+        # What the link counted, beside the knobs' accounting above.
+        d2h_bytes_by_pass={p: row["d2h_bytes"] for p, row in stats["link"].items()},
         host_waits_s={k: stats.get(k, 0.0)
                       for k in ("suite_prefetch_wait_s", "suite_device_get_s", "suite_write_wait_s")},
+        writer_s={k: stats.get(k, 0.0) for k in ("writer_recompute_s", "writer_store_s")},
         launches=launches,
         downslope_retries=stats["downslope_retries"],
         downslope_retry_halos=stats["downslope_retry_halos"],
@@ -592,7 +622,15 @@ def run(n, tile, seed, out_dir, input_cache, device, arrays=None, prep_workers=1
     return result, out, loaders
 
 
-def main(argv=None):
+def run_options(args):
+    """``run``'s keywords from ``main``'s parsed flags."""
+    return dict(engine=args.engine, skip_verify=args.skip_verify,
+                host_slope_rad=not args.no_host_slope_rad,
+                upload_in_prefetch=not args.no_upload_in_prefetch,
+                host_pointwise=not args.no_host_pointwise, host_slope=not args.no_host_slope)
+
+
+def parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=32768)
     ap.add_argument("--tile", type=int, default=8192)
@@ -601,13 +639,28 @@ def main(argv=None):
     ap.add_argument("--input-cache", default=os.path.join(ROOT, ".config5_inputs"))
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--out-json", help="also write the result line to this file")
-    args = ap.parse_args(argv)
+    ap.add_argument("--engine", default="auto", help="pipeline engine: auto (default), cuda or torch")
+    ap.add_argument("--no-upload-in-prefetch", action="store_true",
+                    help="upload each tile's inputs on the main thread")
+    ap.add_argument("--no-host-slope-rad", action="store_true",
+                    help="download slope_rad instead of recomputing it on the host")
+    ap.add_argument("--no-host-pointwise", action="store_true",
+                    help="download twi/mod_twi/gfi/ln_hl_h instead of recomputing them on the writer thread")
+    ap.add_argument("--no-host-slope", action="store_true",
+                    help="download the slope instead of the bitwise host stencil")
+    ap.add_argument("--skip-verify", action="store_true",
+                    help="skip the streaming invariants over every cell")
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
 
     def note(phase, t, total):
         print(f"[{time.strftime('%H:%M:%S')}] {phase} {t + 1}/{total}", flush=True)
 
     result, _, _ = run(args.n, args.tile, args.seed, args.out_dir, args.input_cache, args.device,
-                       prep_workers=min(8, os.cpu_count() or 1), progress=note)
+                       prep_workers=min(8, os.cpu_count() or 1), progress=note, **run_options(args))
     line = json.dumps(result)
     print(line)
     if args.out_json:

@@ -33,27 +33,43 @@ def decode(fdr):
     return dy, dx, step, valid
 
 
-def successor(fdr, rows, cols):
-    """Per-cell D8 successor as flat indices, plus step length & flags.
+def successor(fdr, rows, cols, row0=0, col0=0, grid_rows=None, grid_cols=None):
+    """Per-cell D8 successor as flat local indices, plus step length & flags.
 
     Returns (succ, step_pixels, in_bounds, valid), all (rows, cols):
-      - ``succ``: int32 flat index of the D8 target; cells whose step is
-        invalid or leaves the grid keep ``succ = self``;
-      - ``step_pixels``: step length in pixels (0 where no step is taken);
-      - ``in_bounds``: True where the D8 target stays inside the grid;
+      - ``succ``: int32 flat index into the local (rows, cols) block of the
+        D8 target; cells whose step is invalid or leaves the local block
+        keep ``succ = self``;
+      - ``step_pixels``: step length in pixels (0 where no step is taken:
+        an invalid code, or a step off the *global* grid);
+      - ``in_bounds``: True where the code decodes and its target lies
+        inside the global grid;
       - ``valid``: True where the D8 code itself decodes.
+
+    ``row0``/``col0`` (the block's origin in the global grid) and
+    ``grid_rows``/``grid_cols`` (the global grid's shape, by default the
+    block's) tell a global border exit apart from a step off the block that
+    stays inside the global grid, as the JAX ``successor`` does.  With the
+    defaults the block is the grid.
     """
     dev = fdr.device
+    if grid_rows is None:
+        grid_rows = rows
+    if grid_cols is None:
+        grid_cols = cols
     dy, dx, step, valid = decode(fdr)
     i = torch.arange(rows, dtype=torch.int32, device=dev)[:, None]
     j = torch.arange(cols, dtype=torch.int32, device=dev)[None, :]
     ty = i + dy
     tx = j + dx
-    inside = (ty >= 0) & (ty < rows) & (tx >= 0) & (tx < cols)
-    ok = valid & inside
+    gy = ty + int(row0)
+    gx = tx + int(col0)
+    in_global = (gy >= 0) & (gy < grid_rows) & (gx >= 0) & (gx < grid_cols)
+    in_local = (ty >= 0) & (ty < rows) & (tx >= 0) & (tx < cols)
+    ok = valid & in_global & in_local
     succ = torch.where(ok, ty * cols + tx, i * cols + j).to(torch.int32)
-    step = torch.where(ok, step, 0.0)
-    return succ, step, ok, valid
+    step = torch.where(valid & in_global, step, 0.0)
+    return succ, step, valid & in_global, valid
 
 
 def d8_flow_direction(dem, nodata=-100):

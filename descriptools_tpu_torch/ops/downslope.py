@@ -26,6 +26,10 @@ and the walk engines given ``trunc0`` also return a flag per cell: its walk
 stopped at such a terminal, so its result is not yet exact.
 :func:`downslope_window` composes them for a tile's halo window, the
 plain version of ``ops.cuda.walk.downslope_walk_tracked``.
+
+``method="descent"`` is the JAX package's cross-check engine: a binary
+descent over doubling tables (:func:`build_downslope_tables`,
+:func:`_downslope_descent`), plain torch ops with no kernel.
 """
 
 import numpy as np
@@ -40,6 +44,7 @@ _INC_DIAG = 1 << 16
 # exactly as the JAX engines do.
 _OFF = float(1 << 20)
 _HALF = float(1 << 19)
+_NEG_INF = float(np.float32(-3e38))  # the descent tables' key of a terminal
 
 
 def step_inc_consts():
@@ -182,15 +187,87 @@ def downslope_window(dem_f, fdr, px, elevation_difference, max_steps, row0, col0
     return dn[interior], tr[interior]
 
 
+def _num_levels(max_steps):
+    j = 0
+    while (1 << (j + 1)) <= max_steps:
+        j += 1
+    return j + 1  # levels 0..j cover jumps up to 2^j <= max_steps
+
+
+def build_downslope_tables(dem, fdr, px, nodata=NODATA, max_steps=DOWNSLOPE_MAX_STEPS):
+    """Doubling tables for the binary descent, stacked (levels, n) over the
+    flat grid: ``succs`` (int32, the cell 2^j steps on, terminals holding
+    still), ``dists`` (float32, the path length of those steps, ``d +
+    d[s]`` level by level) and ``minkeys`` (float32, the least key among
+    them, a terminal's key -3e38)."""
+    rows, cols = dem.shape
+    z = dem.to(torch.float32).reshape(-1)
+    succ, step, in_bounds, valid = (t.reshape(-1) for t in successor(fdr, rows, cols))
+    target_nodata = z[succ.long()] == nodata
+    terminal = (~valid) | (~in_bounds) | target_nodata | (z == nodata)
+    self_idx = torch.arange(rows * cols, dtype=torch.int32, device=dem.device)
+    key = torch.where(terminal, _NEG_INF, z)
+    succ0 = torch.where(terminal, self_idx, succ)
+    dist0 = torch.where(terminal, 0.0, step * float(np.float32(px)))
+    minkey0 = key[succ0.long()]
+    succs, dists, minkeys = [succ0], [dist0], [minkey0]
+    for _ in range(_num_levels(max_steps) - 1):
+        s, d, m = succs[-1], dists[-1], minkeys[-1]
+        sl = s.long()
+        succs.append(s[sl])
+        dists.append(d + d[sl])
+        minkeys.append(torch.minimum(m, m[sl]))
+    return torch.stack(succs), torch.stack(dists), torch.stack(minkeys)
+
+
+def _downslope_descent(dem, fdr, px, elevation_difference, max_steps):
+    """Downslope by binary descent over :func:`build_downslope_tables`: from
+    the top level down, jump 2^j steps while no cell among them is at or
+    below ``z - ed`` (nor a terminal) and the cap allows, then take the one
+    step onto the stop."""
+    rows, cols = dem.shape
+    z = dem.to(torch.float32).reshape(-1)
+    succs, dists, minkeys = build_downslope_tables(dem, fdr, px, max_steps=max_steps)
+    cur = torch.arange(rows * cols, device=dem.device)
+    dist = torch.zeros(rows * cols, dtype=torch.float32, device=dem.device)
+    steps = torch.zeros(rows * cols, dtype=torch.int32, device=dem.device)
+    thresh = z - float(np.float32(elevation_difference))
+    for j in range(succs.shape[0] - 1, -1, -1):
+        can = (minkeys[j][cur] > thresh) & (steps + (1 << j) <= max_steps)
+        dist = torch.where(can, dist + dists[j][cur], dist)
+        steps = torch.where(can, steps + (1 << j), steps)
+        cur = torch.where(can, succs[j][cur].long(), cur)
+    take = (steps < max_steps) & (minkeys[0][cur] <= thresh)
+    dist = torch.where(take, dist + dists[0][cur], dist)
+    cur = torch.where(take, succs[0][cur].long(), cur)
+    out = torch.where(dist == 0.0, 0.0, (z - z[cur]) / dist)
+    out = torch.where(z == NODATA, float(NODATA), out)
+    return out.reshape(rows, cols)
+
+
+METHODS = ("jacobi", "descent")
+
+
 def downslope(dem, fdr, px, elevation_difference,
-              max_steps=DOWNSLOPE_MAX_STEPS, engine="torch"):
+              max_steps=DOWNSLOPE_MAX_STEPS, method="jacobi", engine="torch"):
     """Downslope index of a whole grid (float32).
 
-    ``engine="torch"`` runs the plain engine on any device; ``"cuda"`` the
-    downslope kernel (``ops.cuda.walk.downslope_cuda``).
+    ``method`` picks the algorithm, as in JAX: ``"jacobi"`` the lookahead
+    walk, ``"descent"`` the binary descent over doubling tables (a
+    cross-check engine).  ``engine`` picks kernel or plain version:
+    ``"torch"`` runs the plain engine on any device; ``"cuda"`` the
+    downslope kernel (``ops.cuda.walk.downslope_cuda``), which is the
+    jacobi walk: ``"descent"`` with ``"cuda"`` raises ``ValueError``, no
+    kernel exists for it.
     """
+    if method not in METHODS:
+        raise ValueError(f"method must be one of {METHODS}, got {method!r}")
     if engine == "cuda":
+        if method != "jacobi":
+            raise ValueError(f"method={method!r} has no CUDA kernel; run it with engine='torch'")
         from descriptools_tpu_torch.ops.cuda.walk import downslope_cuda
 
         return downslope_cuda(dem, fdr, px, elevation_difference, max_steps)
+    if method == "descent":
+        return _downslope_descent(dem, fdr, px, elevation_difference, max_steps)
     return _downslope_jacobi(dem, fdr, px, elevation_difference, max_steps)

@@ -12,11 +12,15 @@ engine ``"auto"`` runs each tile through the hand-written kernels (the
 absorbing walk, the tracked downslope walk, the padded stencil); ``"torch"``
 runs their plain torch versions on any device.  Device work is synchronous
 per tile: host reads overlap it on one prefetch thread and output writes on
-one writer thread.
+one writer thread.  ``tiled_suite`` takes the JAX package's four link knobs,
+which move work off the host<->device link: three drop rasters from the
+downloads and recompute them on the writer thread, one moves the uploads
+onto the prefetch thread.
 """
 
 import math
 import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
@@ -30,6 +34,8 @@ from descriptools_tpu_torch.ops.cuda import stencil as _st
 from descriptools_tpu_torch.ops.cuda import walk as _walk
 from descriptools_tpu_torch.ops.gfi import gfi as _gfi
 from descriptools_tpu_torch.ops.gfi import ln_hl_h as _ln_hl_h
+from descriptools_tpu_torch.ops.slope import slope_from_padded
+from descriptools_tpu_torch.ops.topo import modified_topographic_index, topographic_index
 from descriptools_tpu_torch.parallel import boundary
 from descriptools_tpu_torch.pipeline import resolve_engine
 
@@ -201,27 +207,33 @@ def tiled_flow_hand(dem, fdr, river, fac, px, device, tile_rows=2048, tile_cols=
 class _Link:
     """Host<->device copies of one tiled run, counted per pass in
     ``stats["link"][pass]``: bytes and seconds each way.  A copy's seconds
-    cover the transfer alone: the card is synchronised before a download
-    starts, and an upload is synchronised before its clock stops."""
+    cover the transfer alone, on the clock of the thread that makes it: the
+    thread's current stream is synchronised before a download starts, and
+    an upload is synchronised on that stream before its clock stops.  Only
+    the calling thread's stream is synchronised, never the whole device, so
+    an upload on the prefetch thread's own stream waits for no kernel of
+    the main thread's.  Both threads count under one lock."""
 
     def __init__(self, device, stats):
         self.device = torch.device(device)
         self.table = stats.setdefault("link", {}) if stats is not None else {}
         self.pass_ = None
+        self._lock = threading.Lock()
 
     def _sync(self):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _count(self, way, nbytes, seconds):
-        row = self.table.setdefault(
-            self.pass_, dict(h2d_bytes=0, h2d_s=0.0, d2h_bytes=0, d2h_s=0.0)
-        )
-        row[way + "_bytes"] += int(nbytes)
-        row[way + "_s"] += seconds
+        with self._lock:
+            row = self.table.setdefault(
+                self.pass_, dict(h2d_bytes=0, h2d_s=0.0, d2h_bytes=0, d2h_s=0.0)
+            )
+            row[way + "_bytes"] += int(nbytes)
+            row[way + "_s"] += seconds
 
     def up(self, arr):
-        """numpy -> tensor on the device."""
+        """numpy -> tensor on the device (on the calling thread's stream)."""
         t0 = time.perf_counter()
         t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
         self._sync()
@@ -237,17 +249,29 @@ class _Link:
         return arr
 
 
+def _host_slope_from_padded(padded, px):
+    """Slope (numpy float32) of the interior of a 1-ring-padded numpy block,
+    on the host: ``ops.slope.slope_from_padded`` on a CPU tensor (torch's
+    intra-op threads).  The CPU's divisions are IEEE, so the result is
+    bitwise the stencil kernel's slope (``csrc/stencil.cu``, ``__fdiv_rn``)
+    and the JAX package's numpy ``_host_slope_from_padded``."""
+    padded = torch.from_numpy(np.ascontiguousarray(padded, dtype=np.float32))
+    return slope_from_padded(padded, px).numpy()
+
+
 def tiled_suite(loaders, shape, cfg, device, tile_rows=4096, tile_cols=4096,
-                out_dir=None, downslope_halo=64, progress=None, cache_inputs=True,
-                stats=None):
+                out_dir=None, downslope_halo=64, engine=None, progress=None,
+                cache_inputs=True, stats=None, host_slope_rad=False,
+                upload_in_prefetch=False, host_pointwise=False, host_slope=False):
     """Full descriptor suite, out of core, fed by windowed loaders.
 
     ``loaders``: {'dem','fdr','river','fac'} -> ``f(ys, ye, xs, xe) -> array``
     (windowed GeoTIFF/Zarr readers, or utils.synthetic.windowed_basin).  The
     dem loader should return an integer dtype for bitwise HAND parity.
-    ``cfg`` is a ``pipeline.PipelineConfig``; its engine resolves against
-    ``device`` as in ``pipeline.descriptor_suite``, and the ``*_blocked``
-    engines are refused.
+    ``cfg`` is a ``pipeline.PipelineConfig``.  ``engine`` (``None``:
+    ``cfg.engine``) resolves against ``device`` as in
+    ``pipeline.descriptor_suite``, and the ``*_blocked`` engines are
+    refused.
 
     Returns the same keys as ``pipeline.descriptor_suite``; values are numpy
     arrays, or memmaps under ``out_dir``.  Integer outputs, downslope, slope
@@ -265,13 +289,37 @@ def tiled_suite(loaders, shape, cfg, device, tile_rows=4096, tile_cols=4096,
          on the ``downslope_halo``-extended window with exact truncation
          retry (the halo doubles per tile until no interior walk is cut).
 
-    ``stats`` (a dict, filled in place): engine, tiles, flow_walk_tier,
-    downslope_engine, downslope_halo0, downslope_retries,
+    The link knobs (the JAX package's, off by default).  Pass C's kernels
+    run as they do without them, apart from the stencil when the three
+    dropping knobs are all on (nothing of it is downloaded then, and it is
+    not run); otherwise only what crosses the link changes:
+      ``host_slope_rad`` drops slope_rad from the downloads (-4 B/cell); the
+      writer thread recomputes it from the slope and the dem window with
+      the JAX package's numpy expression.
+      ``host_pointwise`` drops TWI, mod-TWI, GFI and ln(hl/H) and downloads
+      river_fac instead (-12 B/cell); the writer thread recomputes the four
+      with ``ops.topo`` and ``ops.gfi`` on CPU tensors, from the fac window,
+      slope_rad (the host's with ``host_slope_rad``), HAND and river_fac.
+      ``host_slope`` drops the slope (-4 B/cell); the writer thread
+      recomputes it from the dem window (:func:`_host_slope_from_padded`,
+      bitwise the kernel's).
+      ``upload_in_prefetch`` makes the prefetch thread upload each tile's
+      inputs, on a CUDA stream of its own, so that the upload of tile t+1
+      may overlap tile t's kernels and downloads (from pageable host
+      memory, as without it); the prefetch thread synchronises that stream
+      before it hands the tensors on.  The results are bitwise those
+      without it.
+    A knob that fails raises; nothing falls back to the knob-off path.
+
+    ``stats`` (a dict, filled in place): engine, the four knobs, tiles,
+    flow_walk_tier, downslope_engine, downslope_halo0, downslope_retries,
     downslope_retry_halos, suite_prefetch_wait_s, suite_device_get_s,
-    suite_write_wait_s, ``pass_s`` (wall seconds of passes A, B, C) and
-    ``link`` (host<->device bytes and seconds per pass, see :class:`_Link`).
+    suite_write_wait_s, the writer thread's own seconds (writer_recompute_s
+    for what the knobs dropped, writer_store_s for the output stores),
+    ``pass_s`` (wall seconds of passes A, B, C) and ``link`` (host<->device
+    bytes and seconds per pass, see :class:`_Link`).
     """
-    engine = _tile_engine(cfg.engine, device)
+    engine = _tile_engine(cfg.engine if engine is None else engine, device)
     device = torch.device(device)
     rows, cols = shape
     h, w = tile_rows, tile_cols
@@ -286,6 +334,10 @@ def tiled_suite(loaders, shape, cfg, device, tile_rows=4096, tile_cols=4096,
         stats = {}
     stats.update(
         engine=engine,
+        host_slope_rad=host_slope_rad,
+        upload_in_prefetch=upload_in_prefetch,
+        host_pointwise=host_pointwise,
+        host_slope=host_slope,
         tiles=ny * nx,
         flow_walk_tier=engine,
         downslope_engine=engine,
@@ -318,6 +370,30 @@ def tiled_suite(loaders, shape, cfg, device, tile_rows=4096, tile_cols=4096,
                     _acc(wait_key, t0)
                 fut = ex.submit(thunks[i + 1]) if i + 1 < len(thunks) else None
                 yield res
+
+    # upload_in_prefetch: the prefetch thread uploads on a stream of its own
+    # (none on the CPU) and synchronises only that stream.
+    up_stream = torch.cuda.Stream(device) if upload_in_prefetch and device.type == "cuda" else None
+
+    def _prefetch_up(*arrays):
+        """A tile's inputs as the prefetch thread hands them on: the numpy
+        arrays, or with ``upload_in_prefetch`` tensors on the device, whose
+        copies are complete (``_Link.up`` synchronises the copying stream)."""
+        if not upload_in_prefetch:
+            return arrays
+        with torch.cuda.stream(up_stream):
+            return tuple(link.up(a) for a in arrays)
+
+    def _main_up(inputs):
+        """:func:`_prefetch_up`'s output as tensors for the main thread:
+        uploaded here, or kept from the caching allocator until the main
+        stream is done with them (they were allocated on ``up_stream``)."""
+        if not upload_in_prefetch:
+            return tuple(link.up(a) for a in inputs)
+        if up_stream is not None:
+            for t in inputs:
+                t.record_stream(torch.cuda.current_stream(device))
+        return inputs
 
     # ---- Pass A: ring records + input cache -----------------------------
     t_pass = time.perf_counter()
@@ -353,14 +429,15 @@ def tiled_suite(loaders, shape, cfg, device, tile_rows=4096, tile_cols=4096,
             ye, xe = min(ys + h, rows), min(xs + w, cols)
             for k, v in vals.items():
                 cache[k][ys:ye, xs:xe] = v[: ye - ys, : xe - xs]
-        return iy, ix, vals["fdr"], vals["river"]
+        return iy, ix, _prefetch_up(vals["fdr"], vals["river"])
 
     rings = {}
-    for iy, ix, fdr_t, river_t in _prefetched(
+    for iy, ix, walk_in in _prefetched(
         partial(_ring_inputs, *win) for win in tile_windows()
     ):
+        fdr_t, river_t = _main_up(walk_in)
         loc = boundary.local_flow_summary(
-            zero, link.up(fdr_t), link.up(river_t), zero, iy, ix, h, w, R, C,
+            zero, fdr_t, river_t, zero, iy, ix, h, w, R, C,
             max_steps=max_steps, engine=engine,
         )
         rings[iy, ix] = link.down(torch.stack([loc[k][ring_sel] for k in ring_keys]))
@@ -427,6 +504,11 @@ def tiled_suite(loaders, shape, cfg, device, tile_rows=4096, tile_cols=4096,
         if cache is not None else loaders
     )
     run_stencil = _st.stencil_padded if engine == "cuda" else _st.stencil_padded_plain
+    # Pass C runs the stencil for the rasters it keeps on the device.  With
+    # host_slope, host_slope_rad and host_pointwise all on, the writer
+    # thread recomputes all four, and the stencil is not run (XLA drops it
+    # from the JAX package's jitted tile function as an unused value).
+    device_stencil = not (host_slope and host_slope_rad and host_pointwise)
     run_down = _walk.downslope_walk_tracked if engine == "cuda" else downslope_window
 
     def _ext_inputs(ys, xs, halo):
@@ -441,7 +523,7 @@ def tiled_suite(loaders, shape, cfg, device, tile_rows=4096, tile_cols=4096,
         dem_ext, fdr_ext = _ext_inputs(ys, xs, halo0)
         river_t = load_window(cached["river"], ys, ys + h, xs, xs + w, shape, 0, np.int8)
         fac_t = load_window(cached["fac"], ys, ys + h, xs, xs + w, shape, NODATA, np.int32)
-        return iy, ix, ys, xs, dem_ext, fdr_ext, river_t, fac_t
+        return iy, ix, ys, xs, _prefetch_up(dem_ext, fdr_ext, river_t, fac_t)
 
     def _downslope_ext(dem_f_ext, fdr_ext, y0, x0, halo):
         """Downslope of the interior of a halo-extended window, and whether
@@ -450,11 +532,12 @@ def tiled_suite(loaders, shape, cfg, device, tile_rows=4096, tile_cols=4096,
                           cfg.downslope_max_steps, y0, x0, R, C, halo)
         return dn, tr.any()
 
-    def _suite_tile(iy, ix, ys, xs, dem_ext, fdr_ext, river_t, fac_t):
-        """Every descriptor of one tile, as tensors on the device."""
+    def _suite_tile(iy, ix, ys, xs, suite_in):
+        """The descriptors of one tile that cross the link, as tensors on
+        the device: all ten without a knob; what a knob drops is left out
+        (``host_pointwise`` adds river_fac)."""
         halo = halo0
-        dem_ext, fdr_ext = link.up(dem_ext), link.up(fdr_ext)
-        river_t, fac_t = link.up(river_t), link.up(fac_t)
+        dem_ext, fdr_ext, river_t, fac_t = _main_up(suite_in)
         dem_t = dem_ext[halo:-halo, halo:-halo]
         loc = boundary.local_flow_summary(
             dem_t, fdr_ext[halo:-halo, halo:-halo], river_t, fac_t, iy, ix,
@@ -465,16 +548,54 @@ def tiled_suite(loaders, shape, cfg, device, tile_rows=4096, tile_cols=4096,
             dem_t, landed, a, b, ridx_l, rz_l, rfac_l, fac0, cfg.px
         )
         dem_f_ext = dem_ext.to(torch.float32)
-        padded = dem_f_ext[halo - 1 : halo + h + 1, halo - 1 : halo + w + 1].contiguous()
-        sl, sl_rad, twi, mtwi = run_stencil(padded, fac_t, cfg.px, cfg.n_topo)
+        if device_stencil:
+            padded = dem_f_ext[halo - 1 : halo + h + 1, halo - 1 : halo + w + 1].contiguous()
+            sl, sl_rad, twi, mtwi = run_stencil(padded, fac_t, cfg.px, cfg.n_topo)
         dn, trunc_any = _downslope_ext(dem_f_ext, fdr_ext, ys - halo, xs - halo, halo)
-        res = dict(
-            slope=sl, slope_rad=sl_rad, twi=twi, mod_twi=mtwi,
-            gfi=_gfi(hand, river_fac, cfg.n_gfi, cfg.b_gfi, cfg.px),
-            ln_hl_h=_ln_hl_h(hand, fac_t, cfg.n_gfi, cfg.b_gfi, cfg.px),
-            fdist=fdist, indices=indices, hand=hand, downslope=dn,
-        )
+        res = dict(fdist=fdist, indices=indices, hand=hand, downslope=dn)
+        if not host_slope:
+            res["slope"] = sl
+        if not host_slope_rad:
+            res["slope_rad"] = sl_rad
+        if host_pointwise:
+            res["river_fac"] = river_fac
+        else:
+            res.update(
+                twi=twi, mod_twi=mtwi,
+                gfi=_gfi(hand, river_fac, cfg.n_gfi, cfg.b_gfi, cfg.px),
+                ln_hl_h=_ln_hl_h(hand, fac_t, cfg.n_gfi, cfg.b_gfi, cfg.px),
+            )
         return res, trunc_any
+
+    def _host_rasters(ys, ye, xs, xe, host):
+        """What the knobs dropped from the downloads, recomputed on the
+        writer thread into ``host``, in the JAX package's order: slope from
+        the dem window with a 1-cell halo, slope_rad from the slope, then
+        the four pointwise rasters from fac, slope_rad, HAND and river_fac."""
+        dem_t = None
+        if host_slope:
+            dem_p = load_window(cached["dem"], ys, ye, xs, xe, shape, NODATA, dem_dt,
+                                halo=1).astype(np.float32)
+            host["slope"] = _host_slope_from_padded(dem_p, cfg.px)
+            dem_t = dem_p[1:-1, 1:-1]
+        if host_slope_rad:
+            if dem_t is None:
+                dem_t = load_window(cached["dem"], ys, ye, xs, xe, shape, NODATA, dem_dt)
+            host["slope_rad"] = np.where(
+                dem_t == NODATA, np.float32(NODATA),
+                np.arctan(host["slope"] / np.float32(100.0), dtype=np.float32),
+            )
+        if host_pointwise:
+            fac_t = torch.from_numpy(load_window(cached["fac"], ys, ye, xs, xe, shape, NODATA, np.int32))
+            sl_rad = torch.from_numpy(host["slope_rad"])
+            hand = torch.from_numpy(host["hand"])
+            river_fac = torch.from_numpy(host.pop("river_fac"))
+            host.update(
+                twi=topographic_index(fac_t, sl_rad, cfg.px).numpy(),
+                mod_twi=modified_topographic_index(fac_t, sl_rad, cfg.px, cfg.n_topo).numpy(),
+                gfi=_gfi(hand, river_fac, cfg.n_gfi, cfg.b_gfi, cfg.px).numpy(),
+                ln_hl_h=_ln_hl_h(hand, fac_t, cfg.n_gfi, cfg.b_gfi, cfg.px).numpy(),
+            )
 
     writer = ThreadPoolExecutor(1)
     pending_writes = []
@@ -501,8 +622,13 @@ def tiled_suite(loaders, shape, cfg, device, tile_rows=4096, tile_cols=4096,
 
         def write():
             host["indices"] = _global_indices(host["indices"], C, cols)
+            t0 = time.perf_counter()
+            _host_rasters(ys, ye, xs, xe, host)
+            _acc("writer_recompute_s", t0)
+            t0 = time.perf_counter()
             for k in out:
                 out[k][ys:ye, xs:xe] = host[k]
+            _acc("writer_store_s", t0)
             note("suite", iy * nx + ix, ny * nx)
 
         t0 = time.perf_counter()

@@ -12,8 +12,19 @@ CPU at n = 300 in 128x128 tiles, ``device="cpu"``:
 - the streaming classifier's threshold, Correctness, Fit and class map are
   ``pipeline.classify_flood``'s;
 - the disk check raises and says how much is lacking; an out-of-range dem
-  raises.
+  raises;
+- ``main``'s flags are the JAX script's, with its defaults (read from its
+  source): the four link knobs on, ``--engine auto``, the invariants run;
+  the run with the knobs on (the default) equals the run with all four off
+  (and ``skip_verify``, which leaves out the invariants; the test runs
+  them on its outputs) on indices, HAND, downslope, slope and fdist
+  bitwise and on the five transcendental rasters within rtol 2e-5, atol
+  1e-4; its JSON carries the knobs, ``download_bytes_per_cell`` (18
+  against 38) and the measured download bytes of each pass, pass C's 20 B
+  a cell apart.
 """
+
+import ast
 
 import importlib.util
 import json
@@ -118,6 +129,89 @@ def test_disk_check_says_what_is_lacking(tmp_path, monkeypatch):
     monkeypatch.undo()
     need = c5.check_disk(N, str(tmp_path / "in"), str(tmp_path / "out"), False, PROBE)
     assert list(need.values())[0][0] == N * N * 48 + PROBE
+
+
+KNOBS = ("host_slope_rad", "upload_in_prefetch", "host_pointwise", "host_slope")
+
+
+@pytest.fixture(scope="module")
+def run_knobs_off(run):
+    """The same run with the four knobs off and ``skip_verify``, on the
+    first run's inputs, drawing two sample windows (the float64 oracle is
+    most of a run's time here; the sixteen windows are the default run's,
+    which this one's outputs are held to)."""
+    d = run.dir / "knobs_off"
+    sample_checks = c5.sample_checks
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(c5, "sample_checks", lambda *a, **k: sample_checks(*a, n_windows=2, **k))
+        result, out, loaders = c5.run(N, TILE, SEED, str(d / "out"), str(run.dir / "inputs"), "cpu",
+                                      disk_probe_bytes=PROBE, skip_verify=True, **dict.fromkeys(KNOBS, False))
+    return result, out, loaders
+
+
+def _jax_flags():
+    """{flag: default} of the JAX script's ``main`` (store_true flags: False)."""
+    tree = ast.parse(open(os.path.join(ROOT, "scripts", "config5_1e9.py")).read())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    flags = {}
+    for node in ast.walk(main):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument":
+            kw = {k.arg: k.value for k in node.keywords}
+            store_true = "action" in kw and ast.literal_eval(kw["action"]) == "store_true"
+            default = kw.get("default")
+            flags[node.args[0].value] = False if store_true else (
+                ast.literal_eval(default) if isinstance(default, ast.Constant) else "computed")
+    return flags
+
+
+def test_main_takes_the_jax_scripts_flags_with_its_defaults():
+    jax_flags = _jax_flags()
+    assert {"--engine", "--no-upload-in-prefetch", "--no-host-slope-rad", "--no-host-pointwise",
+            "--no-host-slope", "--skip-verify"} <= set(jax_flags)
+    args = c5.parser().parse_args([])
+    for flag, default in jax_flags.items():
+        got = getattr(args, flag[2:].replace("-", "_"))
+        if default != "computed":  # --out-dir, --input-cache: paths under the repository
+            assert got == default, flag
+    assert c5.run_options(args) == dict(engine="auto", skip_verify=False, **dict.fromkeys(KNOBS, True))
+    off = c5.parser().parse_args(["--no-upload-in-prefetch", "--no-host-slope-rad", "--no-host-pointwise",
+                                  "--no-host-slope", "--skip-verify", "--engine", "torch"])
+    assert c5.run_options(off) == dict(engine="torch", skip_verify=True, **dict.fromkeys(KNOBS, False))
+
+
+def test_knobs_on_by_default_equal_the_knob_off_run(run, run_knobs_off):
+    off, out_off, _ = run_knobs_off
+    for k in ("indices", "hand", "downslope", "slope", "fdist"):
+        np.testing.assert_array_equal(np.asarray(run.out[k]), np.asarray(out_off[k]), err_msg=k)
+    for k in ("slope_rad", "twi", "mod_twi", "gfi", "ln_hl_h"):
+        np.testing.assert_allclose(np.asarray(run.out[k]), np.asarray(out_off[k]), rtol=2e-5, atol=1e-4,
+                                   err_msg=k)
+    on = run.result
+    assert on["ok"] and off["ok"], (on["checks"].get("failures"), off["checks"].get("failures"))
+    assert {k: on[k] for k in KNOBS} == dict.fromkeys(KNOBS, True)
+    assert {k: off[k] for k in KNOBS} == dict.fromkeys(KNOBS, False)
+    assert (on["download_bytes_per_cell"], off["download_bytes_per_cell"]) == (18, 38)
+    # The link's own count: pass C's downloads less 20 B a cell, A and B as they were.
+    assert off["d2h_bytes_by_pass"]["C"] - on["d2h_bytes_by_pass"]["C"] == 20 * N * N
+    for p in ("A", "B"):
+        assert on["d2h_bytes_by_pass"][p] == off["d2h_bytes_by_pass"][p]
+    assert set(on["host_waits_s"]) == {"suite_prefetch_wait_s", "suite_device_get_s", "suite_write_wait_s"}
+
+
+def test_skip_verify_leaves_out_the_invariants(run, run_knobs_off):
+    assert "invariants" not in run_knobs_off[0]["checks"]
+    assert run.result["checks"]["invariants"]["cells_checked"] == N * N
+
+
+def test_knob_off_run_passes_the_invariants(run_knobs_off):
+    """The streaming invariants over every cell of the knob-off run (all
+    rasters downloaded), which ``skip_verify`` left out of its result."""
+    off, out_off, loaders = run_knobs_off
+    assert off["ok"] and len(off["checks"]["windows"]) == 2, off["checks"].get("failures")
+    inv = c5.verify.streaming_flow_invariants(loaders, out_off, (N, N), pipeline.PipelineConfig().px,
+                                              pipeline.PipelineConfig().flow_max_steps, tile_rows=TILE,
+                                              tile_cols=TILE)
+    assert inv["ok"] and inv["invariant_violations"] == 0 and inv["cells_checked"] == N * N
 
 
 def test_dem_outside_int16_raises(tmp_path):

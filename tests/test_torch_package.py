@@ -7,7 +7,11 @@ staged_scale_torch.py and their rank launcher ranks_torch.py).
   and print no result when they fail;
 - make_north_star_reference.py (the JAX side of the parity reference)
   imports nothing of the port;
-- the CUDA route refuses CPU tensors and a missing compiler.
+- the CUDA route refuses CPU tensors and a missing compiler;
+- completeness: every public function and class of the JAX package outside
+  ``ops/pallas/`` has a counterpart in the same module of the port, taking
+  at least JAX's parameter names, but for the TPU-only exceptions listed
+  with their reasons.
 """
 
 import ast
@@ -225,3 +229,73 @@ def test_build_compiles_each_source_and_links_them(monkeypatch, tmp_path):
     monkeypatch.setenv("FAIL_WALK", "1")
     with pytest.raises(RuntimeError, match="nvcc failed"):
         build.build.__wrapped__()
+
+
+# What the port leaves out of the JAX package's API on purpose: (module,
+# name) -> the JAX parameters it lacks (None: the whole function), with the
+# reason (ROADMAP.md, "Not ported").
+_INTERPRET = "Pallas interpret mode: the port's kernels run their plain versions on CPU tensors instead"
+_MESH = "JAX-mesh arguments: the port's mesh is a block layout over the ranks of a torch.distributed group"
+TPU_ONLY = {
+    ("d8", "jax_slice"): (None, "a helper named for jnp slicing; the port slices tensors in place"),
+    ("parallel/boundary", "local_flow_summary"): (
+        {"px", "interpret"}, "the port carries step counts through the ring and forms fdist once a block; "
+        + _INTERPRET),
+    ("parallel/halo", "halo_exchange"): ({"block", "axis_names"}, "a shard_map block; " + _MESH),
+    ("parallel/mesh", "make_mesh"): ({"devices", "axis_names"}, _MESH),
+    ("parallel/multihost", "global_mesh"): ({"axis_names"}, _MESH),
+    ("parallel/multihost", "initialize"): (
+        {"coordinator_address", "num_processes", "process_id"},
+        "jax.distributed's arguments; the port's process group takes init_method, world_size and rank"),
+    ("parallel/sharded", "sharded_flow_hand"): ({"interpret"}, _INTERPRET),
+    ("parallel/sharded", "sharded_downslope"): ({"interpret"}, _INTERPRET),
+    ("tiled", "tiled_flow_hand"): ({"interpret"}, _INTERPRET),
+    ("tiled", "tiled_suite"): ({"interpret"}, _INTERPRET),
+    ("utils/checkpoint", "load_stage"): ({"like"}, "the orbax branch's restore template; the port reads "
+                                         "and writes the .npz branch"),
+}
+
+
+def _public_api(path):
+    """{name: parameter names (None for a class)} of a module's top level."""
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and not node.name.startswith("_"):
+            if isinstance(node, ast.ClassDef):
+                out[node.name] = None
+            else:
+                a = node.args
+                out[node.name] = {x.arg for x in a.posonlyargs + a.args + a.kwonlyargs}
+    return out
+
+
+def test_the_port_has_every_public_function_of_the_jax_package():
+    jax_root, port_root = ROOT / "descriptools_tpu", ROOT / "descriptools_tpu_torch"
+    missing, seen = [], set()
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root)
+        if rel.parts[:2] == ("ops", "pallas"):
+            continue
+        module = str(rel.with_suffix(""))
+        port_path = port_root / rel
+        assert port_path.is_file(), f"no port of {rel}"
+        port = _public_api(port_path)
+        for name, params in _public_api(path).items():
+            exempt, _ = TPU_ONLY.get((module, name), (set(), ""))
+            if exempt is None:
+                seen.add((module, name))
+                assert name not in port, f"{module}.{name} is ported: drop it from TPU_ONLY"
+                continue
+            if name not in port:
+                missing.append(f"{module}.{name}")
+                continue
+            lacking = set() if params is None else params - port[name]
+            if exempt:
+                seen.add((module, name))
+                assert exempt <= params, (module, name, exempt - params)
+            if lacking - exempt:
+                missing.append(f"{module}.{name}({', '.join(sorted(lacking - exempt))})")
+            assert not exempt & (port[name] or set()), f"{module}.{name} takes {exempt & port[name]}: drop them"
+    assert not missing, f"JAX API without a counterpart in the port: {missing}"
+    assert seen == set(TPU_ONLY), set(TPU_ONLY) - seen
+    assert all(reason for _, reason in TPU_ONLY.values())
