@@ -120,7 +120,14 @@ Phases, each printing its own lines:
    (and bitwise the CPU's at 2178x1534); the river ``fac > RIVER_FAC``;
    the suite through K2/K3/K4 (launch counters read) against
    ``engine="torch"``; the one-card classifier on a seeded flood map
-   against the host ``tiled_classify_flood``, both timed.
+   against the host ``tiled_classify_flood``, both timed;
+9. the measuring entry points: ``bench_torch.py`` in a process of its
+   own, as a user runs it, its JSON line read (every key of ``bench.py``'s
+   line, engine "cuda", K2, K3 and K4 launched once a suite it ran,
+   ``correct`` with parity against the JAX reference); then
+   ``bench_configs_torch``'s configs 2 (the suite and the stencil alone at
+   4096x4096) and 4 (the calibration at 2178x1534, its threshold the same
+   as ``calibration(backend="torch")`` of phase 2's HAND on the CPU).
 
 ``--link-probes`` runs only the host link's probes, on phase 4's grid:
 ``tiled_suite`` at 8192x8192 with and without ``upload_in_prefetch`` under
@@ -2298,6 +2305,43 @@ def phase_config3(dev, card):
     torch.cuda.empty_cache()
 
 
+def phase_bench(card, hand, flood):
+    """The measuring entry points: ``bench_torch.py`` as a user runs it,
+    its line checked; ``bench_configs_torch``'s configs 2 and 4 at their
+    sizes, config 4's threshold against ``calibration(backend="torch")``
+    on the CPU of ``hand`` (phase 2's, the same inputs) and ``flood``."""
+    import bench_configs_torch as bc
+    import bench_torch as bt
+    from descriptools_tpu_torch import evaluation, oracle
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    _, line = run_script(["bench_torch.py"])
+    want = {k: line["suites_run"] if k in IN_CORE else 0 for k in line["kernels"]}
+    if (set(bt.JAX_KEYS) - set(line) or line["engine"] != "cuda" or line["kernels"] != want
+            or line["correct"] is not True or "north_star_reference" not in line["checked_against"]):
+        raise AssertionError(f"bench_torch.py: {json.dumps(line)[:4000]}")
+    print(f"bench_torch.py: {json.dumps(line)}")
+    print(f"bench_torch.py {line['metric']}: {line['value']} grid-points/s, sustained {line['sustained_s'] * 1e3:.4f} "
+          f"ms, latency {line['latency_s'] * 1e3:.4f} ms, vs_baseline {line['vs_baseline']} (CPU "
+          f"{line['baseline']['seconds']:.4f} s, {line['baseline']['threads']} threads); K2, K3, K4 launched "
+          f"{line['suites_run']} times each; correct, max_abs_err {line['max_abs_err']:.3g}  [{card}]")
+    for config in (bc.config2_full_suite_4096, bc.config2_stencil_slope_twi_4096):
+        r = config()
+        if r["cells"] != 4096 * 4096 or not r["seconds"] > r.get("bound_s", 0.0):
+            raise AssertionError(f"{config.__name__}: {r}")
+        print(f"bench_configs_torch {config.__name__}: {json.dumps(r)}  [{card}]")
+    r = bc.config4_calibration_basin()
+    elements = np.unique(hand)
+    desc = torch.as_tensor(oracle.min_max_scale_oracle(hand, elements[1], elements[-1]), dtype=torch.float32)
+    th_cpu = evaluation.calibration(desc, torch.as_tensor(flood), "under", backend="torch")
+    if r["cells"] != ROWS * COLS or r["threshold"] != th_cpu:
+        raise AssertionError(f"config4_calibration_basin: {r}; the CPU's threshold {th_cpu}")
+    print(f"bench_configs_torch config4_calibration_basin: {json.dumps(r)} (threshold the CPU's)  [{card}]")
+    torch.cuda.empty_cache()
+    print(f"bench phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     start = time.perf_counter()
     sass = phase_device()
@@ -2308,6 +2352,7 @@ def main():
     phase_kernels(dev, basin, errs)
     phase_tile_kernels(dev, basin, errs)
     inputs, launches, small, classified = phase_slice(dev, basin)
+    hand_small = small["hand"].cpu().numpy()
     phase_north_star(dev, card, basin, small)
     times = phase_timing(dev, inputs, card, sass)
     del inputs
@@ -2326,6 +2371,7 @@ def main():
     phase_compat(dev, basin)
     phase_oracle(dev, basin)
     phase_config3(dev, card)
+    phase_bench(card, hand_small, basin["flood"])
     # No single PyTorch call computes any of these functions: library_ms null.
     kernels = [
         dict(name=name, route="cuda", **meta, launches=launches[name], max_abs_err=errs[name],

@@ -1,6 +1,7 @@
 """Rules of the PyTorch port's package, of chip_smoke.py and of the
 scripts at the root (config5_torch.py, weak_scaling_torch.py,
-staged_scale_torch.py and their rank launcher ranks_torch.py).
+staged_scale_torch.py and their rank launcher ranks_torch.py, and the
+measuring entry points bench_torch.py and bench_configs_torch.py).
 
 - the port imports neither jax, orbax nor descriptools_tpu;
 - chip_smoke.py and the scripts import neither, fail fast without a GPU,
@@ -33,6 +34,8 @@ CONFIG5 = ROOT / "config5_torch.py"
 WEAK = ROOT / "weak_scaling_torch.py"
 STAGED = ROOT / "staged_scale_torch.py"
 RANKS = ROOT / "ranks_torch.py"
+BENCH = ROOT / "bench_torch.py"
+BENCH_CONFIGS = ROOT / "bench_configs_torch.py"
 
 
 def _forbidden(name):
@@ -64,7 +67,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("path", [SMOKE, CONFIG5, WEAK, STAGED, RANKS,
+@pytest.mark.parametrize("path", [SMOKE, CONFIG5, WEAK, STAGED, RANKS, BENCH, BENCH_CONFIGS,
                                   *sorted((ROOT / "descriptools_tpu_torch").rglob("*.py"))],
                          ids=lambda p: str(Path(p).relative_to(ROOT)))
 def test_sources_name_no_jax_import(path):
@@ -92,7 +95,8 @@ def test_config5_imports_no_jax_at_run_time():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("module", ["weak_scaling_torch", "staged_scale_torch", "ranks_torch"])
+@pytest.mark.parametrize("module", ["weak_scaling_torch", "staged_scale_torch", "ranks_torch",
+                                    "bench_torch", "bench_configs_torch"])
 def test_scale_scripts_import_no_jax_at_run_time(module):
     code = (
         "import sys\n"
@@ -139,6 +143,20 @@ def test_scale_scripts_without_gpu_fail_fast_and_print_no_result(argv, tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and "STAGED" not in proc.stdout
     assert not (tmp_path / "in").exists() and not (tmp_path / "work").exists()  # it wrote nothing
+
+
+@pytest.mark.parametrize("script, args", [(BENCH, []), (BENCH, ["--synthetic", "64"]),
+                                          (BENCH_CONFIGS, ["--out", "results.json"])],
+                         ids=["bench_torch", "bench_torch_synthetic", "bench_configs_torch"])
+def test_bench_scripts_without_gpu_fail_fast_and_print_no_result(script, args, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would run")
+    argv = [str(tmp_path / a) if a.endswith(".json") else a for a in args]
+    proc = subprocess.run([sys.executable, str(script), *argv], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+    assert not [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]  # no JSON line
+    assert not (tmp_path / "results.json").exists()  # it wrote nothing
 
 
 def test_chip_smoke_without_gpu_fails_fast_and_prints_no_result():
