@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the root of the repository
     python3 chip_smoke.py --cards 4  # the staged scale script over NCCL, a rank a card, and weak scaling
     python3 chip_smoke.py --link-probes  # the host link's copy/kernel overlap probes alone
+    python3 chip_smoke.py --long-drainage  # the long-drainage parity phase alone
 
 Phases, each printing its own lines:
 
@@ -46,6 +47,21 @@ Phases, each printing its own lines:
    the sampled cells, its -100/NaN/inf counts exact, its sums within the
    bound the tolerance implies), with the largest error of each raster and
    the suite's time at 4096x4096;
+2c. long drainage (``phase_long_drainage``): terrain-derived rivers whose
+   walks run hundreds of steps (``synthetic_dem`` with a wide blur and a
+   steep ramp, fdr and fac from ``derive_terrain`` on the card, river
+   ``fac > T``), held to the JAX package's results in
+   ``tests/data/long_drainage_reference.npz`` at 2178x1534 and 4096x4096:
+   the inputs' sha256 (fdr and fac JAX's), the walks' statistics, the
+   suite under ``engine="cuda"`` and ``"cuda_blocked"`` and the one-card
+   classifier (``utils.parity.check`` with each engine's fdist order:
+   the count engine within ``parity.count_bound`` of JAX's xla fdist, the
+   fold engine bitwise JAX's right fold), the jump walk's pending cells
+   and R, the fold's P and K (the phase fails on no pending cell or K =
+   0), the suites' and the downslope kernel's times, ``jump_profile`` and
+   ``fold_profile`` on the suite's operands; at 4096x4096 ``tiled_suite``
+   in 1024x1024 tiles and ``sharded_suite`` on mesh (4, 4), bitwise the
+   count engine's suite, each with a downslope retry, timed;
 3. timing: the suite and each kernel beside its plain version and its
    bound, median of 5 runs after one warm-up, with CUDA events, and the
    stencil's device time (torch.profiler); a torch.profiler check that the
@@ -129,6 +145,8 @@ Phases, each printing its own lines:
    4096x4096) and 4 (the calibration at 2178x1534, its threshold the same
    as ``calibration(backend="torch")`` of phase 2's HAND on the CPU).
 
+``--long-drainage`` runs phases 0 and 2c alone.
+
 ``--link-probes`` runs only the host link's probes, on phase 4's grid:
 ``tiled_suite`` at 8192x8192 with and without ``upload_in_prefetch`` under
 torch.profiler (the host-to-device copies' device time, how much of it ran
@@ -202,6 +220,9 @@ BIG = 8192  # the tiled phase's grid side: 67,108,864 cells
 TILE = 4096  # the JAX package's default tile side
 NORTH_STAR = 4096  # the North star's square grid; its other is the basin's shape
 NORTH_STAR_REFERENCE = os.path.join(ROOT, "tests", "data", "north_star_reference.npz")
+LONG_DRAINAGE_REFERENCE = os.path.join(ROOT, "tests", "data", "long_drainage_reference.npz")
+LONG_TILE = 1024  # the long-drainage phase's tiles at 4096x4096: walks cross several
+LONG_MESH = (4, 4)  # its mesh at 4096x4096: 1024x1024 blocks on one rank
 CONFIG5_PROBE_BYTES = 1 << 30  # the config-5 phase's disk probe (config5_torch.py's default: 4 GiB)
 # The H100 SXM's published memory rate (NVIDIA's data sheet) at 700 W:
 # 3.35 TB/s, per ms.  The stencils' other bound is their operations: the
@@ -1044,6 +1065,185 @@ def phase_north_star(dev, card, basin, small):
         del inputs, out
     torch.cuda.empty_cache()
     print(f"north star phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_long_drainage(dev, card):
+    """Long drainage held to the JAX package (``long_drainage_reference.npz``,
+    ``make_north_star_reference.py``): terrain-derived rivers whose walks
+    run hundreds of steps, at 2178x1534 and 4096x4096.  At each size:
+
+    - the inputs made by the port (``utils.parity.long_drainage_inputs``:
+      ``synthetic_dem`` on the host, ``derive_terrain`` on the card), dem,
+      fdr, fac, river and flood sha256 JAX's; ``derive_terrain``'s time;
+      the walks' statistics from the plain engines on the card equal to
+      the set's (flow steps mean/max, downslope steps mean/max);
+    - ``descriptor_suite`` under ``engine="cuda"`` (K2, K3, K4) and
+      ``"cuda_blocked"`` (K2, K3, K7), each with the one-card classifier,
+      held to the set by ``utils.parity.check``: indices, HAND, downslope
+      and the class map by sha256, threshold, Correctness and Fit
+      identical, slope, slope_rad, TWI, mod-TWI, GFI and ln(hl/H) within
+      today's tolerances, and fdist in the engine's order: the count
+      engine within ``parity.count_bound``, atol + (rtol + steps 2^-24)
+      |w| (fdist's rtol 1e-6, atol 1e-4), of JAX's xla fdist, the fold
+      engine bitwise JAX's right fold (``fdist_fold``) and within the same
+      bound of the xla fdist; the largest error printed beside the share
+      of its bound; launch counters read around each suite, the jump
+      walk's pending cells after phase 1 and R, the fold's P and K (the
+      phase fails on no pending cell, or K = 0); each suite's time (CUDA
+      events, median of 5);
+    - the downslope kernel's time beside its plain version's;
+      ``jump_profile`` and ``fold_profile`` on the suite's walk operands:
+      the jump walk bitwise ``doubling_walk``, the cells entering each
+      round, both walks' device time by step;
+    - at 4096x4096, ``tiled_suite`` in 1024x1024 tiles and
+      ``sharded_suite`` on mesh (4, 4) (a world of one over NCCL), each
+      bitwise the count engine's suite on indices, HAND, downslope, slope
+      and fdist, each with at least one downslope retry (walks leave the
+      64-cell halo), timed (host clock, a warm run after the checked one).
+    """
+    from dataclasses import replace
+
+    from descriptools_tpu_torch import pipeline, tiled
+    from descriptools_tpu_torch.ops import flow
+    from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters, walk
+    from descriptools_tpu_torch.ops.downslope import _downslope_jacobi
+    from descriptools_tpu_torch.ops.terrain import derive_terrain
+    from descriptools_tpu_torch.parallel import make_mesh, multihost, sharded_suite
+    from descriptools_tpu_torch.parallel.classify import sharded_classify_flood
+    from descriptools_tpu_torch.utils import parity
+
+    t_phase = time.perf_counter()
+    ref = parity.load(LONG_DRAINAGE_REFERENCE)
+    if parity.sizes(ref) != [(ROWS, COLS), (NORTH_STAR, NORTH_STAR)]:
+        raise AssertionError(f"long drainage: the reference holds {parity.sizes(ref)}")
+    dtypes = parity.hash_dtypes(ref)
+    for rows, cols in parity.sizes(ref):
+        tag = f"{rows}x{cols}"
+        p = parity.params(ref, rows, cols)
+        t0 = time.perf_counter()
+        arrays, inputs = parity.long_drainage_inputs(ref, rows, cols, dev)
+        torch.cuda.synchronize()
+        make_s = time.perf_counter() - t0
+        bad = [k for k in parity.INPUTS if parity.sha256(arrays[k], dtypes[k]) != str(ref[f"{tag}.sha256.{k}"])]
+        if bad:
+            raise AssertionError(f"long drainage {tag}: {bad} differ from the JAX reference's sha256")
+        terrain_ms = median_ms(lambda: derive_terrain(inputs[0]))
+        walks = parity.walk_stats(inputs[0], inputs[1], inputs[3], p["elevation_difference"])
+        if walks != parity.walks(ref, rows, cols):
+            raise AssertionError(f"long drainage {tag}: walks {walks} vs the reference's {parity.walks(ref, rows, cols)}")
+        print(f"long drainage {tag} (synthetic_dem smooth {p['smooth']:.0f}, amp {p['amp']:.0f}; river fac > "
+              f"{p['river_fac']:.0f}; ED {p['elevation_difference']:.0f}): dem, fdr, fac, river, flood sha256 the JAX "
+              f"reference's (derive_terrain on the card {terrain_ms:.3f} ms; inputs made in {make_s:.1f} s); walks "
+              f"the reference's: {walks['landed']} of {walks['valid']} valid cells landed, flow steps mean "
+              f"{walks['flow_steps_sum'] / walks['landed']:.3f}, max {walks['flow_steps_max']}, "
+              f"{walks['flow_over_64']} over 64; downslope steps mean "
+              f"{walks['downslope_steps_sum'] / walks['valid']:.3f}, max {walks['downslope_steps_max']}  [{card}]")
+        flood = torch.as_tensor(arrays["flood"], device=dev)
+        cfg = pipeline.PipelineConfig(elevation_difference=p["elevation_difference"])
+        count_out = None
+        for engine, order, kernels in (("cuda", "count", IN_CORE), ("cuda_blocked", "fold", BLOCKED)):
+            ecfg = replace(cfg, engine=engine)
+            reset_launch_counters()
+            out = pipeline.descriptor_suite(*inputs, ecfg)
+            torch.cuda.synchronize()
+            launches = launch_counters()
+            if [k for k in kernels if launches[k] == 0]:
+                raise AssertionError(f"long drainage {tag} {engine}: launches {launches}")
+            if engine == "cuda":
+                pending, rounds = walk.flow_walk.pending.tolist(), walk.flow_walk.rounds
+                if pending[0] == 0:
+                    raise AssertionError(f"long drainage {tag}: no cell pending after the jump walk's phase 1")
+                walked = f"jump walk: {pending[0]} cells pending after phase 1, R {rounds}, cells entering each " \
+                         f"round {pending[:-1]}"
+            else:
+                fb = walk.flow_walk_blocked
+                if fb.rounds == 0:
+                    raise AssertionError(f"long drainage {tag}: the fold ran no band round (K = 0)")
+                walked = f"fold: K {fb.rounds}, P {fb.pending}, its jump walk's R {fb.jump_rounds}"
+            classified = sharded_classify_flood(out["hand"], flood)
+            host = {k: v.cpu().numpy() for k, v in out.items()}
+            report = parity.check(ref, rows, cols, arrays, host, (*classified[:3], classified[3].cpu().numpy()),
+                                  fdist_order=order)
+            fd = report["fdist"]
+            errs = ", ".join(f"{k} {r['max_abs_err']:.3g}" for k, r in report.items() if k != "fdist")
+            suite_ms = median_ms(lambda: pipeline.descriptor_suite(*inputs, ecfg))
+            print(f"long drainage {tag} engine={engine}: launches {launches}; {walked}; inputs, indices, hand, "
+                  f"downslope and class map sha256 the JAX reference's; threshold {classified[0]} Correctness "
+                  f"{classified[1]!r} Fit {classified[2]!r} identical; fdist ({order} order"
+                  + (", bitwise JAX's right fold" if order == "fold" else "")
+                  + f") largest error against JAX's xla fdist {fd['max_abs_err']:.6g}, {fd['bound_used']:.4f} of "
+                  f"count_bound, {fd['beyond_tolerance']} of {2 * int(ref['meta.samples'])} sampled cells beyond "
+                  f"rtol 1e-6, atol 1e-4; sums {fd['sum_bound_used']:.4f} of their bound; largest error of the "
+                  f"other floats: {errs}; suite {suite_ms:.3f} ms ({rows * cols / suite_ms / 1e3:.3f} M "
+                  f"grid-points/s)  [{card}]")
+            if engine == "cuda":
+                count_out = {k: host[k] for k in BITWISE}
+            del out, host, classified
+        dem_f = inputs[0].to(torch.float32)
+        downslope_args = (dem_f, inputs[1], cfg.px, cfg.elevation_difference, cfg.downslope_max_steps)
+        k3_ms = median_ms(lambda: walk.downslope_walk(*downslope_args))
+        k3_plain_ms = median_ms(lambda: _downslope_jacobi(*downslope_args), 1)
+        print(f"time downslope_walk long drainage {tag}: kernel {k3_ms:.3f} ms, plain _downslope_jacobi "
+              f"{k3_plain_ms:.3f} ms (median of 1); walks of {walks['downslope_steps_sum'] / walks['valid']:.3f} "
+              f"steps a valid cell, {walks['downslope_steps_max']} at most  [{card}]")
+        del dem_f, downslope_args
+        ops = flow.walk_inputs(inputs[1], inputs[3])
+        cap = cfg.flow_max_steps
+        jump_profile({f"long drainage {tag}": (ops, cap)}, card)
+        fold_profile({f"long drainage {tag}": (ops, cap, 1)}, card)
+        del ops
+
+        if (rows, cols) == (NORTH_STAR, NORTH_STAR):
+            loaders = {k: tiled._array_loader(arrays[k]) for k in ("dem", "fdr", "river", "fac")}
+
+            def run_tiled(stats):
+                return tiled.tiled_suite(loaders, (rows, cols), cfg, dev, tile_rows=LONG_TILE, tile_cols=LONG_TILE,
+                                         stats=stats)
+
+            multihost.initialize(device="cuda")
+            try:
+                mesh = make_mesh(LONG_MESH)
+                if (mesh.backend, mesh.world) != ("nccl", 1):
+                    raise AssertionError(f"long drainage: mesh {mesh}")
+
+                def run_sharded(stats):
+                    got = sharded_suite(arrays["dem"], arrays["fdr"], arrays["fac"], arrays["river"], cfg, mesh,
+                                        stats=stats)
+                    return {k: got[k].cpu().numpy() for k in BITWISE}
+
+                for label, run, expect in (
+                        (f"tiled_suite in {LONG_TILE}x{LONG_TILE} tiles", run_tiled, TILED),
+                        (f"sharded_suite on mesh {LONG_MESH} (world of one, nccl)", run_sharded, TILED)):
+                    stats = {}
+                    reset_launch_counters()
+                    t0 = time.perf_counter()
+                    got = run(stats)
+                    torch.cuda.synchronize()
+                    first_s = time.perf_counter() - t0
+                    launches = launch_counters()
+                    if [k for k in expect if launches[k] == 0]:
+                        raise AssertionError(f"long drainage {tag} {label}: launches {launches}")
+                    for k in BITWISE:
+                        check_bitwise(f"long drainage {tag} {label}/{k}", torch.as_tensor(np.asarray(got[k])),
+                                      torch.as_tensor(count_out[k]))
+                    retries = stats["downslope_retries"]
+                    if retries == 0:
+                        raise AssertionError(f"long drainage {tag} {label}: no downslope retry ran")
+                    halos = ([a["halo"] for a in stats["downslope_attempts"]] if "downslope_attempts" in stats
+                             else sorted({r["halo"] for r in stats["downslope_retry_halos"]}))
+                    del got
+                    t0 = time.perf_counter()
+                    run({})
+                    torch.cuda.synchronize()
+                    warm_s = time.perf_counter() - t0
+                    print(f"long drainage {tag} {label}: launches {launches}; indices, hand, downslope, slope, fdist "
+                          f"bitwise the count engine's in-core suite; downslope_retries {retries}, retry halos "
+                          f"{halos}; wall {first_s:.3f} s checked, {warm_s:.3f} s warm (host clock)  [{card}]")
+            finally:
+                multihost.shutdown()
+        del arrays, inputs, flood, count_out
+        torch.cuda.empty_cache()
+    print(f"long drainage phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def wall_ms(fn, repeats=REPEATS):
@@ -2354,6 +2554,7 @@ def main():
     inputs, launches, small, classified = phase_slice(dev, basin)
     hand_small = small["hand"].cpu().numpy()
     phase_north_star(dev, card, basin, small)
+    phase_long_drainage(dev, card)
     times = phase_timing(dev, inputs, card, sass)
     del inputs
     tiled_launches, tiled_times, full, tiled_out = phase_tiled(dev, card, classified, small["hand"], basin,
@@ -2388,6 +2589,15 @@ def main():
     }))
 
 
+def main_long_drainage():
+    """``--long-drainage``: the device phase and the long-drainage phase
+    alone (``phase_long_drainage``)."""
+    phase_device()
+    dev, card = torch.device("cuda", 0), card_line()
+    phase_long_drainage(dev, card)
+    print(card)
+
+
 def main_link_probes():
     """``--link-probes``: the host link's probes alone, on phase 4's grid
     (``upload_overlap``, ``copy_overlap``); no kernel is checked."""
@@ -2407,5 +2617,7 @@ if __name__ == "__main__":
         main_cards(int(sys.argv[2]))
     elif sys.argv[1:] == ["--link-probes"]:
         main_link_probes()
+    elif sys.argv[1:] == ["--long-drainage"]:
+        main_long_drainage()
     else:
         main()
