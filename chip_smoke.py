@@ -1853,16 +1853,20 @@ def phase_config5(dev, card, full, tiled_out):
     classifier; indices, HAND, downslope, slope and fdist bitwise phase 4's
     knob-off tiled outputs, the rest within TRANSCENDENTAL; K1 not
     launched (the writer thread recomputes all of its rasters); pass C's
-    downloads 18 B a cell, the truncation flags and retries apart."""
+    downloads 18 B a cell, the truncation flags and retries apart.  The
+    memmaps are written to ``bench_torch.py``'s input cache, where phase 9's
+    out-of-core modes read them (the generator runs once)."""
     import tempfile
 
+    import bench_torch
     import config5_torch
 
     t_phase = time.perf_counter()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="config5_", dir=os.path.join(ROOT, "build"))
     try:
-        r, out, _ = config5_torch.run(BIG, TILE, 0, os.path.join(tmp, "out"), os.path.join(tmp, "inputs"), dev,
+        r, out, _ = config5_torch.run(BIG, TILE, 0, os.path.join(tmp, "out"),
+                                      os.path.join(ROOT, bench_torch.INPUT_CACHE), dev,
                                       arrays=full, disk_probe_bytes=CONFIG5_PROBE_BYTES)
         launches = {k: r["launches"].get(k, 0) for k in TILED}  # counted from 0 over the tiled suite
         tiles = (BIG // TILE) ** 2
@@ -2505,27 +2509,80 @@ def phase_config3(dev, card):
     torch.cuda.empty_cache()
 
 
+def bench_line(argv, engine, kernels, checked, card):
+    """``bench_torch.py`` with ``argv`` as a user runs it, its line checked:
+    every key of ``bench.py``'s line, ``engine``, each of ``kernels``
+    launched once a suite or run and no other (or ``kernels(line)``: the
+    launches of each a run), ``correct`` against ``checked`` (a fragment of
+    ``checked_against``); the long-drainage and out-of-core modes' inputs
+    made apart from the timing (``prep_s``), the out-of-core ones read from
+    phase 4c's memmaps (``cached``).  Prints the line and returns it."""
+    import bench_torch as bt
+
+    t0 = time.perf_counter()
+    _, line = run_script(["bench_torch.py", *argv])
+    runs = line.get("suites_run", line.get("runs"))
+    per_run = kernels(line) if callable(kernels) else dict.fromkeys(kernels, 1)
+    want = {k: per_run.get(k, 0) * runs for k in line["kernels"]}
+    new_mode = any(a in argv for a in ("--long-drainage", "--tiled", "--checkpointed"))
+    out_of_core = "runs" in line
+    if (set(bt.JAX_KEYS) - set(line) or line["engine"] != engine or line["kernels"] != want
+            or line["correct"] is not True or checked not in line["checked_against"]
+            or (new_mode and "prep_s" not in line) or (out_of_core and line["cached"] is not True)):
+        raise AssertionError(f"bench_torch.py {' '.join(argv)}: expected launches {want}: {json.dumps(line)[:4000]}")
+    print(f"bench_torch.py {' '.join(argv)}: {json.dumps(line)}")
+    timing = (f"sustained {line['sustained_s'] * 1e3:.4f} ms, latency {line['latency_s'] * 1e3:.4f} ms"
+              if "sustained_s" in line else f"median run {line['steady_state_ms']} ms of {line['run_s']}")
+    print(f"bench_torch.py {' '.join(argv)} {line['metric']}: {line['value']} grid-points/s, {timing}, vs_baseline "
+          f"{line['vs_baseline']} (CPU {line['baseline']['seconds']:.4f} s, engine {line['baseline']['engine']}, "
+          f"{line['baseline']['threads']} threads, cached {line['baseline']['cached']})"
+          + (f", prep {line['prep_s']:.3f} s (timed apart)" if "prep_s" in line else "")
+          + f"; launches {line['kernels']} over {runs}; correct, max_abs_err {line['max_abs_err']:.3g}; "
+          f"{time.perf_counter() - t0:.1f} s with start-up  [{card}]")
+    return line
+
+
 def phase_bench(card, hand, flood):
-    """The measuring entry points: ``bench_torch.py`` as a user runs it,
-    its line checked; ``bench_configs_torch``'s configs 2 and 4 at their
-    sizes, config 4's threshold against ``calibration(backend="torch")``
-    on the CPU of ``hand`` (phase 2's, the same inputs) and ``flood``."""
+    """The measuring entry points: ``bench_torch.py`` as a user runs it in
+    each mode, each line checked (``bench_line``): the default input under
+    "auto" (K2, K3, K4) and "cuda_blocked" (K2, K3, K7; its suite held to
+    "torch_blocked", one synchronising call a suite), both held to the
+    North star's reference; ``--long-drainage 2178x1534`` under both
+    engines, held to the long-drainage set in the engine's fdist order, with
+    the walk statistics, the jump walk's pending cells and R (and the fold's
+    P and K); ``--tiled 8192 --tile 4096`` (K1 and K6 once a tile, K5
+    twice, K6 once more a retry, every run) and ``--checkpointed 8192`` (K2,
+    K3, K4 once a run), both on phase 4c's memmaps (``cached``: the
+    generator is not run again) and bitwise the in-core suite; then
+    ``bench_configs_torch``'s configs 2 and 4 at their sizes, config 4's
+    threshold against ``calibration(backend="torch")`` on the CPU of
+    ``hand`` (phase 2's, the same inputs) and ``flood``.  The memmaps are
+    removed afterwards."""
     import bench_configs_torch as bc
     import bench_torch as bt
     from descriptools_tpu_torch import evaluation, oracle
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    _, line = run_script(["bench_torch.py"])
-    want = {k: line["suites_run"] if k in IN_CORE else 0 for k in line["kernels"]}
-    if (set(bt.JAX_KEYS) - set(line) or line["engine"] != "cuda" or line["kernels"] != want
-            or line["correct"] is not True or "north_star_reference" not in line["checked_against"]):
-        raise AssertionError(f"bench_torch.py: {json.dumps(line)[:4000]}")
-    print(f"bench_torch.py: {json.dumps(line)}")
-    print(f"bench_torch.py {line['metric']}: {line['value']} grid-points/s, sustained {line['sustained_s'] * 1e3:.4f} "
-          f"ms, latency {line['latency_s'] * 1e3:.4f} ms, vs_baseline {line['vs_baseline']} (CPU "
-          f"{line['baseline']['seconds']:.4f} s, {line['baseline']['threads']} threads); K2, K3, K4 launched "
-          f"{line['suites_run']} times each; correct, max_abs_err {line['max_abs_err']:.3g}  [{card}]")
+    try:
+        north = "north_star_reference"
+        bench_line([], "cuda", IN_CORE, north, card)
+        bench_line(["--engine", "cuda_blocked"], "cuda_blocked", BLOCKED, north, card)
+        for engine, kernels in (("cuda", IN_CORE), ("cuda_blocked", BLOCKED)):
+            line = bench_line(["--long-drainage", f"{ROWS}x{COLS}", "--engine", engine], engine, kernels,
+                              "long_drainage_reference", card)
+            w = line["walks"]
+            if not w["pending_after_phase1"] or (engine == "cuda_blocked" and not w["fold_K"]):
+                raise AssertionError(f"bench_torch.py --long-drainage {engine}: walks {w}")
+        tiles = (BIG // TILE) ** 2
+        line = bench_line(["--tiled", str(BIG), "--tile", str(TILE)], "cuda",
+                          lambda ln: dict(stencil_padded=tiles, absorbing_walk=2 * tiles,
+                                          downslope_walk_tracked=tiles + ln["downslope_retries"]), "in-core", card)
+        if line["tiles"] != tiles:
+            raise AssertionError(f"bench_torch.py --tiled: {line['tiles']} tiles")
+        bench_line(["--checkpointed", str(BIG)], "cuda", IN_CORE, "in-core", card)
+    finally:
+        shutil.rmtree(os.path.join(ROOT, bt.INPUT_CACHE), ignore_errors=True)
     for config in (bc.config2_full_suite_4096, bc.config2_stencil_slope_twi_4096):
         r = config()
         if r["cells"] != 4096 * 4096 or not r["seconds"] > r.get("bound_s", 0.0):

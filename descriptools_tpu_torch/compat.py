@@ -30,6 +30,11 @@ available.  On the card, ``downsloper`` runs the downslope kernel and
 ``divisor`` and ``index_calculator`` run on the host in numpy (float64),
 as the reference and the JAX ``compat`` run them, and take no device.
 
+Rasters are computed in the dtypes the JAX ``compat`` computes them in
+(64-bit inputs demoted to 32 bits, ``pipeline.as_jax_dtypes``), so the
+values are JAX's; HAND is returned in the dem's numpy dtype, where JAX's
+is 32-bit (a documented departure: ``compat`` keeps numpy's dtypes).
+
 The ``division_column`` / ``division_row`` arguments exist in the reference
 only to fit tiles in GPU memory; here the whole grid is device-resident,
 so they are accepted and ignored (the reference's tiling is
@@ -43,11 +48,11 @@ from descriptools_tpu_torch import evaluation as _ev
 from descriptools_tpu_torch import oracle as _oracle
 from descriptools_tpu_torch import ops as _ops
 from descriptools_tpu_torch.constants import NODATA
-from descriptools_tpu_torch.pipeline import check_device
+from descriptools_tpu_torch.pipeline import as_jax_dtypes, check_device
 
 
 def _t(a, device, dtype=None):
-    return torch.as_tensor(np.asarray(a, dtype), device=device)
+    return torch.as_tensor(as_jax_dtypes(np.asarray(a, dtype))[0], device=device)
 
 
 def _np(*tensors):
@@ -88,13 +93,14 @@ def downsloper(dem, flow_direction, px, elevation_difference,
 def flow_hand_index(dem_raster, flow_direction_matrix, river_matrix, px,
                     division_column=0, division_row=0, *, device="cuda"):
     dev = check_device(device)
-    return _np(*_ops.flow_hand_index(_t(dem_raster, dev), _t(flow_direction_matrix, dev),
-                                     _t(river_matrix, dev), px))
+    fdist, indices, hand = _np(*_ops.flow_hand_index(_t(dem_raster, dev), _t(flow_direction_matrix, dev),
+                                                     _t(river_matrix, dev), px))
+    return fdist, indices, hand.astype(np.asarray(dem_raster).dtype)
 
 
 def hand_calculator(dem, indices, *, device="cuda"):
     dev = check_device(device)
-    return _np(_ops.hand_calculator(_t(dem, dev), _t(indices, dev)))
+    return _np(_ops.hand_calculator(_t(dem, dev), _t(indices, dev))).astype(np.asarray(dem).dtype)
 
 
 def index_calculator(river_indices, row_start, column_start, column_size):

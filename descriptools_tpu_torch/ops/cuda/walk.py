@@ -245,7 +245,9 @@ def flow_walk_blocked(fdr_eff, code0, c_card, c_diag, max_steps):
     the cells deeper than W are folded in K rounds, band by band of W
     depths, each onto an anchor an earlier launch finished.  Sets, for the
     last call, ``flow_walk_blocked.rounds`` (K), ``.pending`` (the cells
-    folded in rounds) and ``.jump_rounds`` (the jump walk's R).  Refuses
+    folded in rounds), ``.jump_rounds`` (the jump walk's R) and
+    ``.jump_pending`` (a device tensor: the cells entering each of the
+    jump walk's rounds, as ``flow_walk.pending``).  Refuses
     ``max_steps >= 2^30`` on any device, as the jump walk does."""
     _check_jump_max_steps(max_steps)
     if not code0.is_cuda:
@@ -270,6 +272,7 @@ def flow_walk_blocked(fdr_eff, code0, c_card, c_diag, max_steps):
         )
     flow_walk_blocked.launches += 1
     flow_walk_blocked.jump_rounds, flow_walk_blocked.pending, flow_walk_blocked.rounds = info
+    flow_walk_blocked.jump_pending = counts[: info[0] + 1]
     return code, dist
 
 
@@ -277,6 +280,7 @@ flow_walk_blocked.launches = 0
 flow_walk_blocked.rounds = 0
 flow_walk_blocked.pending = 0
 flow_walk_blocked.jump_rounds = 0
+flow_walk_blocked.jump_pending = None
 
 
 def flow_blocked_cuda(fdr, river, px, max_steps):

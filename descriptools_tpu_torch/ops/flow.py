@@ -366,7 +366,11 @@ def flow_distance_index(fdr, river, px, max_steps=FLOW_MAX_STEPS, method=None, e
 def hand_calculator(dem, indices, nodata=NODATA):
     """HAND = clip(dem - dem.flat[indices], 0); NoData masked.
 
-    Integer-exact when dem is integer: pass dem as an int dtype."""
+    Integer-exact when dem is integer: pass dem as an int dtype.  A 64-bit
+    dem is demoted as JAX demotes it (``pipeline.as_jax_dtypes``)."""
+    from descriptools_tpu_torch.pipeline import as_jax_dtypes
+
+    dem, indices = as_jax_dtypes(dem, indices)
     flat = dem.reshape(-1)
     idx = indices.reshape(-1)
     safe = torch.where(idx == nodata, 0, idx).long()
@@ -381,7 +385,9 @@ def hand_and_river_fac(dem, fac, indices, nodata=NODATA):
 
     As in the JAX version, dem and fac ride the gather as float32 (exact
     below 2^24) and HAND keeps the dem's dtype; the ``fac.flat[0]``
-    fallback quirk for unresolved cells is kept."""
+    fallback quirk for unresolved cells is kept.  Callers pass dem in
+    JAX's dtype (``pipeline.as_jax_dtypes``): a float64 dem would take the
+    gathered value rounded and its own unrounded."""
     flat_d = dem.reshape(-1)
     flat_f = fac.reshape(-1)
     idx = indices.reshape(-1)
@@ -402,9 +408,11 @@ def flow_hand_index(dem, fdr, river, px, max_steps=FLOW_MAX_STEPS, engine="auto"
 
     ``engine`` as ``pipeline.resolve_engine`` takes it: ``"auto"`` runs
     the jump-walk kernel on CUDA tensors and the plain engine elsewhere.
-    Pass dem as an integer dtype for integer-exact HAND."""
-    from descriptools_tpu_torch.pipeline import resolve_engine
+    Pass dem as an integer dtype for integer-exact HAND.  64-bit rasters
+    are demoted as JAX demotes them (``pipeline.as_jax_dtypes``)."""
+    from descriptools_tpu_torch.pipeline import as_jax_dtypes, resolve_engine
 
     engine = resolve_engine(engine, fdr.device)
+    fdr, river = as_jax_dtypes(fdr, river)  # hand_calculator demotes dem
     fdist, indices = flow_distance_index(fdr, river, px, max_steps=max_steps, engine=engine)
     return fdist, indices, hand_calculator(dem, indices)

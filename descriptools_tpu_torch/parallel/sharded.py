@@ -37,7 +37,7 @@ from descriptools_tpu_torch.parallel.mesh import (
     crop_from_mesh,
     pad_to_mesh,
 )
-from descriptools_tpu_torch.pipeline import resolve_engine
+from descriptools_tpu_torch.pipeline import as_jax_dtypes, resolve_engine
 
 _RING_KEYS = ("status", "a", "b", "tgy", "tgx", "ridx", "rz", "rfac")
 _FLOAT_RING = ("rz", "rfac")  # carried as float32 bit views in the int32 record
@@ -56,14 +56,15 @@ def _check_mesh(raster, mesh):
 def _staged(arr, mesh, fill, dtype=None):
     """A numpy raster padded and cut into this rank's blocks on
     ``mesh.device``; a ``ShardedRaster`` of this mesh passes through (cast
-    to ``dtype``)."""
+    to ``dtype``).  64-bit rasters are demoted as JAX demotes them
+    (``pipeline.as_jax_dtypes``)."""
     if isinstance(arr, ShardedRaster):
         _check_mesh(arr, mesh)
         if dtype is None:
-            return arr
+            return arr.map(lambda t: as_jax_dtypes(t)[0])
         tdt = torch.from_numpy(np.zeros(0, dtype)).dtype
         return arr.map(lambda t: t.to(tdt))
-    a = np.asarray(arr)
+    a = as_jax_dtypes(arr)[0]
     if dtype is not None:
         a = a.astype(dtype)
     a = pad_to_mesh(a, mesh, fill)

@@ -94,6 +94,27 @@ def config_from_jax(cfg):
     return PipelineConfig(**fields)
 
 
+# JAX runs with x64 off: ``jnp.asarray`` demotes these to 32 bits.
+_JAX_TORCH_DTYPES = {torch.int64: torch.int32, torch.float64: torch.float32}
+_JAX_NUMPY_DTYPES = {np.dtype(np.int64): np.int32, np.dtype(np.float64): np.float32}
+
+
+def as_jax_dtypes(*arrays):
+    """Each tensor or numpy array in the dtype the JAX package computes it
+    in: int64 as int32 and float64 as float32 (JAX's x64 is off), any
+    other dtype as it is.  Every entry point that JAX feeds
+    through ``jnp.asarray`` demotes its rasters here, so HAND and GFI on a
+    64-bit dem are JAX's in dtype and value."""
+    out = []
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            out.append(a.to(_JAX_TORCH_DTYPES.get(a.dtype, a.dtype)))
+        else:
+            a = np.asarray(a)
+            out.append(a.astype(_JAX_NUMPY_DTYPES.get(a.dtype, a.dtype), copy=False))
+    return tuple(out)
+
+
 def inputs_to_torch(dem, fdr, fac, river, device):
     """numpy rasters -> tensors with ``run_example``'s dtypes: dem and fac
     int32, fdr and river as given."""
@@ -131,8 +152,10 @@ def descriptor_suite(dem, fdr, fac, river, cfg: PipelineConfig = PipelineConfig(
     """All descriptors of one grid, as a dict of tensors on the inputs' device.
 
     dem should be an integer dtype for bitwise HAND parity with the
-    reference golden (the example feeds int16)."""
+    reference golden (the example feeds int16).  64-bit rasters are
+    demoted as JAX demotes them (:func:`as_jax_dtypes`)."""
     engine = cfg.resolve_engine(dem.device)
+    dem, fdr, fac, river = as_jax_dtypes(dem, fdr, fac, river)
     dem_f = dem.to(torch.float32).contiguous()
     sl, sl_rad, twi, mtwi = _engine_stencil(dem_f, fac, cfg, engine)
     down = _engine_downslope(dem_f, fdr, cfg, engine)
@@ -169,11 +192,13 @@ def run_suite_checkpointed(dem, fdr, fac, river, cfg: PipelineConfig, ckpt_dir, 
     long enough that a restart from zero hurts.  ``stats`` (a dict, filled
     in place) gets one entry per stage: ``resumed`` (loaded, not
     computed), ``seconds`` (host clock, compute and save, or load) and
-    ``saved_bytes`` / ``loaded_bytes`` (the rasters' bytes).
+    ``saved_bytes`` / ``loaded_bytes`` (the rasters' bytes).  64-bit
+    rasters are demoted as in ``descriptor_suite``.
     """
     from descriptools_tpu_torch.utils import checkpoint as ckpt
 
     engine = cfg.resolve_engine(dem.device)
+    dem, fdr, fac, river = as_jax_dtypes(dem, fdr, fac, river)
     device = dem.device
     manifest = dict(
         shape=[int(s) for s in dem.shape], dem_dtype=str(dem.dtype).removeprefix("torch."),

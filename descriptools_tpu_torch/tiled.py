@@ -37,7 +37,7 @@ from descriptools_tpu_torch.ops.gfi import ln_hl_h as _ln_hl_h
 from descriptools_tpu_torch.ops.slope import slope_from_padded
 from descriptools_tpu_torch.ops.topo import modified_topographic_index, topographic_index
 from descriptools_tpu_torch.parallel import boundary
-from descriptools_tpu_torch.pipeline import resolve_engine
+from descriptools_tpu_torch.pipeline import as_jax_dtypes, resolve_engine
 
 
 def _tile_grid(shape, tile_rows, tile_cols):
@@ -233,9 +233,12 @@ class _Link:
             row[way + "_s"] += seconds
 
     def up(self, arr):
-        """numpy -> tensor on the device (on the calling thread's stream)."""
+        """numpy -> tensor on the device (on the calling thread's stream),
+        64-bit windows demoted on the host as JAX demotes them
+        (``pipeline.as_jax_dtypes``)."""
         t0 = time.perf_counter()
-        t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        arr = np.ascontiguousarray(as_jax_dtypes(arr)[0])
+        t = torch.from_numpy(arr).to(self.device)
         self._sync()
         self._count("h2d", arr.nbytes, time.perf_counter() - t0)
         return t

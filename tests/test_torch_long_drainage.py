@@ -157,6 +157,32 @@ def test_parity_check_in_the_engines_order(ref, jax_run, port_inputs, port_runs,
         parity.check(ref, ROWS, COLS, port_inputs[0], wrong, classified, fdist_order=order)
 
 
+def test_bench_long_drainage_line_holds_to_jax(ref, tmp_path, monkeypatch):
+    """``bench_torch.py --long-drainage`` on this size's set, built in
+    memory, on the CPU under the count engine (the fold engine's plain
+    suites take seconds each here; the card runs both): its suite held to
+    JAX in the count order, its walk statistics the set's.  The CPU leg is
+    read from a cache written here."""
+    import json
+
+    import bench_torch as bt
+
+    monkeypatch.setattr(bt, "_rev", lambda: "rev-a")
+    metric = f"full_descriptor_suite_long_drainage_{TAG}"
+    (tmp_path / "build").mkdir()
+    (tmp_path / "build" / f"bench_cpu_{metric}.json").write_text(
+        json.dumps(dict(rev="rev-a", t_cpu=1.0, threads=1, cpu_model="cached")))
+    line = bt.measure(["--long-drainage", TAG, "--engine", "torch"], device="cpu", iters=1, batch=1,
+                      root=str(tmp_path), reference=ref)
+    assert line["metric"] == metric and line["engine"] == "torch" and line["baseline"]["cached"]
+    assert line["correct"] is True and "long_drainage_reference" in line["checked_against"]
+    assert line["fdist"]["order"] == "count" and line["fdist"]["bound_used"] <= 1.0
+    assert line["walks"]["flow_steps_max"] == WALKS["flow_steps_max"]
+    assert line["walks"]["downslope_steps_mean"] == WALKS["downslope_steps_sum"] / WALKS["valid"]
+    assert line["prep_s"] > 0 and line["walks"]["landed"] == WALKS["landed"]
+    assert not any(line["kernels"].values())
+
+
 @pytest.fixture(scope="module")
 def world():
     multihost.initialize(device="cpu")

@@ -1,7 +1,8 @@
 """Rules of the PyTorch port's package, of chip_smoke.py and of the
 scripts at the root (config5_torch.py, weak_scaling_torch.py,
 staged_scale_torch.py and their rank launcher ranks_torch.py, and the
-measuring entry points bench_torch.py and bench_configs_torch.py).
+measuring entry points bench_torch.py, bench_configs_torch.py and
+bench_spread_torch.py).
 
 - the port imports neither jax, orbax nor descriptools_tpu;
 - chip_smoke.py and the scripts import neither, fail fast without a GPU,
@@ -36,6 +37,7 @@ STAGED = ROOT / "staged_scale_torch.py"
 RANKS = ROOT / "ranks_torch.py"
 BENCH = ROOT / "bench_torch.py"
 BENCH_CONFIGS = ROOT / "bench_configs_torch.py"
+BENCH_SPREAD = ROOT / "bench_spread_torch.py"
 
 
 def _forbidden(name):
@@ -67,7 +69,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("path", [SMOKE, CONFIG5, WEAK, STAGED, RANKS, BENCH, BENCH_CONFIGS,
+@pytest.mark.parametrize("path", [SMOKE, CONFIG5, WEAK, STAGED, RANKS, BENCH, BENCH_CONFIGS, BENCH_SPREAD,
                                   *sorted((ROOT / "descriptools_tpu_torch").rglob("*.py"))],
                          ids=lambda p: str(Path(p).relative_to(ROOT)))
 def test_sources_name_no_jax_import(path):
@@ -146,8 +148,9 @@ def test_scale_scripts_without_gpu_fail_fast_and_print_no_result(argv, tmp_path)
 
 
 @pytest.mark.parametrize("script, args", [(BENCH, []), (BENCH, ["--synthetic", "64"]),
-                                          (BENCH_CONFIGS, ["--out", "results.json"])],
-                         ids=["bench_torch", "bench_torch_synthetic", "bench_configs_torch"])
+                                          (BENCH_CONFIGS, ["--out", "results.json"]),
+                                          (BENCH_SPREAD, ["--repeat", "1", "--out", "results.json"])],
+                         ids=["bench_torch", "bench_torch_synthetic", "bench_configs_torch", "bench_spread_torch"])
 def test_bench_scripts_without_gpu_fail_fast_and_print_no_result(script, args, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the script would run")
