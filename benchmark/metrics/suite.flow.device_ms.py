@@ -1,0 +1,3 @@
+"""suite.flow.device_ms (moves cells_per_s): ``stages.suite_flow_device_ms``."""
+
+from benchmark.stages import suite_flow_device_ms as read  # noqa: F401

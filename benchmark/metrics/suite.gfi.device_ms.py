@@ -1,0 +1,3 @@
+"""suite.gfi.device_ms (moves cells_per_s): ``stages.suite_gfi_device_ms``."""
+
+from benchmark.stages import suite_gfi_device_ms as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""suite.hand.enqueue_ms (moves cells_per_s): ``stages.suite_hand_enqueue_ms``."""
+
+from benchmark.stages import suite_hand_enqueue_ms as read  # noqa: F401

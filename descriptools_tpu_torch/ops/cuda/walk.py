@@ -52,6 +52,7 @@ import torch
 from descriptools_tpu_torch.ops.downslope import _downslope_jacobi, check_max_steps, downslope_window
 from descriptools_tpu_torch.ops import flow as _flow
 from descriptools_tpu_torch.ops.cuda import build
+from descriptools_tpu_torch.utils import timing
 
 
 # fdr dtypes the downslope kernel reads as they are (uint8 as given by
@@ -168,7 +169,7 @@ def _jump_buffers(fdr_eff, code0):
 def _jump_walk(counted, fdr_eff, code0, max_steps):
     """The jump walk: (code, a, b) int32.  Sets ``counted.rounds`` (R) and
     ``counted.pending`` (a device tensor: ``pending[k]`` cells entered
-    round k)."""
+    round k), and adds R to the open span's counter ``rounds``."""
     shape = tuple(code0.shape)
     dev = code0.device
     code, a, b, counts, scratch = _jump_buffers(fdr_eff, code0)
@@ -182,6 +183,7 @@ def _jump_walk(counted, fdr_eff, code0, max_steps):
     counted.launches += 1
     counted.rounds = rounds.value
     counted.pending = counts[: rounds.value + 1]
+    timing.count("rounds", counted.rounds)
     return code, a, b
 
 

@@ -40,6 +40,7 @@ import torch
 
 from descriptools_tpu_torch.constants import D8_STEP, FLOW_MAX_STEPS, NODATA
 from descriptools_tpu_torch.d8 import pull8, successor
+from descriptools_tpu_torch.utils import timing
 
 UNRES = -(1 << 31)  # unresolved-walk code (INT32_MIN)
 _I32_IDX_LIMIT = 1 << 31
@@ -81,7 +82,8 @@ def doubling_walk(fdr_eff, code0, max_steps):
     """Plain walk engine: successor doubling with integer step counts.
 
     After R rounds (2^R >= max_steps) every walk of at most ``max_steps``
-    steps sits on its absorber, with exact counts."""
+    steps sits on its absorber, with exact counts.  Adds R to the open
+    span's counter ``rounds``."""
     rows, cols = fdr_eff.shape
     succ, step, _, _ = successor(fdr_eff, rows, cols)
     succ = succ.reshape(-1).long()
@@ -97,6 +99,7 @@ def doubling_walk(fdr_eff, code0, max_steps):
         a = a + a[nxt]
         b = b + b[nxt]
         nxt = nxt[nxt]
+    timing.count("rounds", rounds)
     ok = absorbing[nxt] & (a + b <= max_steps)
     code = torch.where(ok, code0.reshape(-1)[nxt], UNRES)
     a = torch.where(ok, a, 0)

@@ -25,6 +25,7 @@ import torch
 
 from descriptools_tpu_torch.constants import NODATA
 from descriptools_tpu_torch.d8 import d8_flow_direction, successor
+from descriptools_tpu_torch.utils import timing
 
 
 def _levels(max_path):
@@ -42,7 +43,10 @@ def flow_accumulation(fdr, max_path=None, stats=None):
     acyclic D8 field.  Cells on flow cycles accumulate lap-multiplied
     counts, as in JAX.  ``stats`` (a dict, filled in place) gets
     ``rounds``, the doubling rounds run, and ``live``, the cells still
-    live entering each round.
+    live entering each round.  Counters of the open span
+    (``utils.timing``): ``rounds``, ``live_cells`` (the sum of ``live``) and
+    ``host_reads``, 1 + 2 a round: the live list's length, read on the host
+    once to start and twice a round.
     """
     rows, cols = fdr.shape
     n = rows * cols
@@ -52,7 +56,8 @@ def flow_accumulation(fdr, max_path=None, stats=None):
     dev = succ.device
     f = torch.zeros(n, dtype=torch.int32, device=dev)
     stats = {} if stats is None else stats
-    live = torch.nonzero(succ[:n] != n).reshape(-1)
+    live = torch.nonzero(succ[:n] != n).reshape(-1)  # the host reads its length
+    timing.count("host_reads")
     to = succ[live]
     f.index_add_(0, to, torch.ones_like(to))
     stats["live"] = []
@@ -63,16 +68,25 @@ def flow_accumulation(fdr, max_path=None, stats=None):
         to = succ[to]
         succ[live] = to
         keep = to != n
-        live, to = live[keep], to[keep]
+        live, to = live[keep], to[keep]  # two boolean indexings: two host reads
+        timing.count("host_reads", 2)
         rounds += 1
     stats["rounds"] = rounds
+    timing.count("rounds", rounds)
+    timing.count("live_cells", sum(stats["live"]))
     return f.reshape(rows, cols)
 
 
 def derive_terrain(dem, nodata=NODATA, max_path=None, stats=None):
     """(fdr, fac) derived from a DEM: steepest-descent D8 + accumulation,
-    fac NoData where the DEM is.  ``stats`` as for ``flow_accumulation``."""
-    fdr = d8_flow_direction(dem, nodata=nodata)
-    fac = flow_accumulation(fdr, max_path=max_path, stats=stats)
-    fac = torch.where(dem == nodata, nodata, fac)
+    fac NoData where the DEM is.  ``stats`` as for ``flow_accumulation``.
+    Spans (``utils.timing``): ``terrain`` and, inside it, ``terrain.d8``
+    (counter ``host_writes``: its 8 divisors) and ``terrain.accumulation``
+    (with the NoData mask; counters as for ``flow_accumulation``)."""
+    with timing.span("terrain"):
+        with timing.span("terrain.d8"):
+            fdr = d8_flow_direction(dem, nodata=nodata)
+        with timing.span("terrain.accumulation"):
+            fac = flow_accumulation(fdr, max_path=max_path, stats=stats)
+            fac = torch.where(dem == nodata, nodata, fac)
     return fdr, fac

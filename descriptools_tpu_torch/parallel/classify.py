@@ -38,6 +38,7 @@ import torch
 
 from descriptools_tpu_torch.constants import NODATA
 from descriptools_tpu_torch.evaluation import _scalar, coarse_to_fine_search
+from descriptools_tpu_torch.utils import timing
 
 NBINS_MAX = 1 << 22  # widest HAND value range the one-pass histogram bins
 _F32_EXACT = 1 << 24  # integers above this are not exactly f32-representable
@@ -84,6 +85,7 @@ def _block_histogram(hand_blk, bench_blk, h00, lo, nbins):
     idx = (hand_blk - _scalar(lo, hand_blk)).to(torch.int32).clamp(0, nbins - 1)
     key = torch.where(valid, 2 * idx + flooded.to(torch.int32), 2 * nbins)
     joint = torch.bincount(key.reshape(-1), minlength=2 * nbins + 1)
+    timing.count("host_reads", 2)  # bincount reads its input's least and largest values
     ht = joint[1 : 2 * nbins : 2]
     return joint[0 : 2 * nbins : 2] + ht, ht, flooded.sum()
 
@@ -99,6 +101,7 @@ def _block_counts(hand_blk, bench_blk, h00, cuts, under):
     flooded = _bench01(bench_blk)
     n_fl = flooded.sum()
     rows = []
+    timing.count("host_writes")
     for cut in torch.as_tensor(cuts, dtype=torch.float32, device=hand_blk.device):
         pred = valid & _hit(hand_blk, cut, under)
         tp = (pred & flooded).sum()
@@ -156,11 +159,17 @@ def _integer_cutoff(th, mn, mx, under):
     return hi
 
 
+def _read(t):
+    """``t`` on the host as a numpy array: one host read, counted."""
+    timing.count("host_reads")
+    return t.cpu().numpy()
+
+
 def _histogram_counts(hv, ht, n_fl, lo, nbins, under):
     """``counts_at(cuts)`` from the joint histogram: host prefix sums."""
-    cum_v = np.cumsum(hv.cpu().numpy().astype(np.int64))
-    cum_t = np.cumsum(ht.cpu().numpy().astype(np.int64))
-    n_fl = int(n_fl)
+    cum_v = np.cumsum(_read(hv).astype(np.int64))
+    cum_t = np.cumsum(_read(ht).astype(np.int64))
+    n_fl = int(_read(n_fl))
 
     def counts_at(cuts):
         acc = np.empty((len(cuts), 3), np.int64)  # tp, fp, fn
@@ -313,6 +322,13 @@ def sharded_classify_flood(hand, flood, mesh=None, under="under", shape=None, cr
 
     Requires integer-valued HAND (integer DEM input; the reference example
     feeds int16) and raises otherwise, pointing at the host float path.
+
+    Spans (``utils.timing``), on one device: ``classify`` and, inside it,
+    ``classify.stats`` (the casts and the statistics' one host read),
+    ``classify.search`` (``_search``: the histogram pass or the counting
+    passes, and the host's search) and ``classify.map``; each read of a
+    device value on the host adds 1 to the open span's ``host_reads``, and
+    each copy of a host value to the device 1 to its ``host_writes``.
     """
     if mesh is not None:
         from descriptools_tpu_torch.parallel.mesh import Mesh
@@ -320,30 +336,34 @@ def sharded_classify_flood(hand, flood, mesh=None, under="under", shape=None, cr
         if not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.mesh.Mesh or None, got {type(mesh).__name__}")
         return _mesh_classify_flood(hand, flood, mesh, under, shape, crop)
-    if not isinstance(hand, torch.Tensor):
-        from descriptools_tpu_torch.pipeline import check_device
+    with timing.span("classify"):
+        with timing.span("classify.stats"):
+            if not isinstance(hand, torch.Tensor):
+                from descriptools_tpu_torch.pipeline import check_device
 
-        hand = torch.as_tensor(np.asarray(hand), device=check_device(device))
-    dev = hand.device
-    hand_s = hand.to(torch.float32)
-    flood_s = torch.as_tensor(flood, device=dev).to(torch.int32)
-    R, C = hand_s.shape
-    if R * C >= 1 << 31:
-        raise ValueError(f"grid {R}x{C} overflows int32 confusion counts")
-    rows, cols = (R, C) if shape is None else (int(s) for s in shape)
+                hand = torch.as_tensor(np.asarray(hand), device=check_device(device))
+            dev = hand.device
+            hand_s = hand.to(torch.float32)
+            flood_s = torch.as_tensor(flood, device=dev).to(torch.int32)
+            R, C = hand_s.shape
+            if R * C >= 1 << 31:
+                raise ValueError(f"grid {R}x{C} overflows int32 confusion counts")
+            rows, cols = (R, C) if shape is None else (int(s) for s in shape)
 
-    real = hand_s[:rows, :cols]
-    gmin, mx = _block_extrema(real)
-    mn2 = _block_second_min(real, gmin)
-    h00 = hand_s[0, 0]
-    stats = torch.stack([gmin, mn2, mx, _block_nonint(real).to(torch.float32)])
-    gmin, mn2, mx, nonint = stats.double().cpu().numpy()
-    th, correctness, fit, cut_i = _search(
-        gmin, mn2, mx, nonint, under,
-        lambda lo, nbins: _block_histogram(hand_s, flood_s, h00, lo, nbins),
-        lambda cuts: _block_counts(hand_s, flood_s, h00, cuts, under).cpu().numpy(),
-    )
-    class_map = _block_classmap(hand_s, flood_s, h00, float(cut_i), under)
-    if crop:
-        class_map = class_map[:rows, :cols]
+            real = hand_s[:rows, :cols]
+            gmin, mx = _block_extrema(real)
+            mn2 = _block_second_min(real, gmin)
+            h00 = hand_s[0, 0]
+            stats = torch.stack([gmin, mn2, mx, _block_nonint(real).to(torch.float32)])
+            gmin, mn2, mx, nonint = _read(stats.double())
+        with timing.span("classify.search"):
+            th, correctness, fit, cut_i = _search(
+                gmin, mn2, mx, nonint, under,
+                lambda lo, nbins: _block_histogram(hand_s, flood_s, h00, lo, nbins),
+                lambda cuts: _read(_block_counts(hand_s, flood_s, h00, cuts, under)),
+            )
+        with timing.span("classify.map"):
+            class_map = _block_classmap(hand_s, flood_s, h00, float(cut_i), under)
+            if crop:
+                class_map = class_map[:rows, :cols]
     return th, correctness, fit, class_map

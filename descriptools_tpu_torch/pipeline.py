@@ -34,6 +34,7 @@ from descriptools_tpu_torch.ops.downslope import downslope
 from descriptools_tpu_torch.ops.flow import flow_distance_index, hand_and_river_fac
 from descriptools_tpu_torch.ops.gfi import gfi as _gfi
 from descriptools_tpu_torch.ops.gfi import ln_hl_h
+from descriptools_tpu_torch.utils import timing
 
 ENGINES = ("auto", "cuda", "torch", "cuda_blocked", "torch_blocked")
 _ON_CUDA = ("cuda", "cuda_blocked")
@@ -153,16 +154,27 @@ def descriptor_suite(dem, fdr, fac, river, cfg: PipelineConfig = PipelineConfig(
 
     dem should be an integer dtype for bitwise HAND parity with the
     reference golden (the example feeds int16).  64-bit rasters are
-    demoted as JAX demotes them (:func:`as_jax_dtypes`)."""
-    engine = cfg.resolve_engine(dem.device)
-    dem, fdr, fac, river = as_jax_dtypes(dem, fdr, fac, river)
-    dem_f = dem.to(torch.float32).contiguous()
-    sl, sl_rad, twi, mtwi = _engine_stencil(dem_f, fac, cfg, engine)
-    down = _engine_downslope(dem_f, fdr, cfg, engine)
-    fdist, indices = _engine_flow(fdr, river, cfg, engine)
-    hand, river_fac = hand_and_river_fac(dem, fac, indices)
-    geofi = _gfi(hand, river_fac, cfg.n_gfi, cfg.b_gfi, cfg.px)
-    lnhlh = ln_hl_h(hand, fac, cfg.n_gfi, cfg.b_gfi, cfg.px)
+    demoted as JAX demotes them (:func:`as_jax_dtypes`).  Spans
+    (``utils.timing``): ``suite`` and, inside it, ``suite.inputs`` (the
+    casts), ``suite.stencil``, ``suite.downslope``, ``suite.flow`` (counter
+    ``rounds``: the flow walk's), ``suite.hand`` and ``suite.gfi`` (GFI and
+    ln(hl/H))."""
+    with timing.span("suite"):
+        engine = cfg.resolve_engine(dem.device)
+        with timing.span("suite.inputs"):
+            dem, fdr, fac, river = as_jax_dtypes(dem, fdr, fac, river)
+            dem_f = dem.to(torch.float32).contiguous()
+        with timing.span("suite.stencil"):
+            sl, sl_rad, twi, mtwi = _engine_stencil(dem_f, fac, cfg, engine)
+        with timing.span("suite.downslope"):
+            down = _engine_downslope(dem_f, fdr, cfg, engine)
+        with timing.span("suite.flow"):
+            fdist, indices = _engine_flow(fdr, river, cfg, engine)
+        with timing.span("suite.hand"):
+            hand, river_fac = hand_and_river_fac(dem, fac, indices)
+        with timing.span("suite.gfi"):
+            geofi = _gfi(hand, river_fac, cfg.n_gfi, cfg.b_gfi, cfg.px)
+            lnhlh = ln_hl_h(hand, fac, cfg.n_gfi, cfg.b_gfi, cfg.px)
     return dict(
         slope=sl,
         slope_rad=sl_rad,

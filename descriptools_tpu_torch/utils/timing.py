@@ -8,6 +8,18 @@ time on the CPU are timed on the host clock, with a ``sync`` inside the
 window, as JAX's ``timeit`` blocks on every result.
 ``trace()`` records a ``torch.profiler`` trace for TensorBoard or
 chrome://tracing.
+
+Spans and counters.  The entry points open a span at each stage
+(``span(name)``) and count what the host already knows inside it
+(``count(name, n)``: rounds, live cells, host reads).  Both do nothing
+unless a ``recording()`` block is open: then each span keeps its name, its
+host start and end (``time.perf_counter_ns``), its parent and its request
+(the index of its top-level span, one a call of an entry point), and its
+counters, in the ``Record`` the block yields, in memory; and, while a
+``torch.profiler`` runs too, each span is also a ``record_function`` named
+``"dt." + name``, so the trace ties every launch to its stage.  Neither
+reads the device or synchronizes.  One thread records at a time: the
+record is the process's.
 """
 
 import contextlib
@@ -72,5 +84,89 @@ def trace(logdir=TRACE_DIR):
         sync()
 
 
-def grid_points_per_second(cells, seconds):
-    return cells / seconds
+class Span:
+    """One recorded span: ``name``, host ``start`` and ``end`` in
+    nanoseconds (``time.perf_counter_ns``), ``parent`` (the index of the
+    span it opened inside, None at the top), ``request`` (the index of its
+    top-level span) and ``counters`` ({name: total})."""
+
+    __slots__ = ("name", "start", "end", "parent", "request", "counters")
+
+    def __init__(self, name, parent, request, counters):
+        self.name, self.parent, self.request, self.counters = name, parent, request, counters
+        self.start = self.end = None
+
+
+class Record:
+    """The spans of one ``recording()`` block, in the order they opened: a
+    span's index in ``spans`` is its sequence number."""
+
+    def __init__(self):
+        self.spans = []
+        self._open = []  # indices of the open spans, innermost last
+
+
+_record = None  # the open recording()'s Record; None: recording is off
+_OFF = contextlib.nullcontext()
+
+
+class _Recorded:
+    """A span being recorded into ``record``; also a ``record_function``
+    where a profiler runs."""
+
+    __slots__ = ("record", "name", "counters", "span", "annotation")
+
+    def __init__(self, record, name, counters):
+        self.record, self.name, self.counters = record, name, counters
+        self.annotation = None
+
+    def __enter__(self):
+        if torch.autograd._profiler_enabled():
+            self.annotation = torch.profiler.record_function("dt." + self.name)
+            self.annotation.__enter__()
+        rec = self.record
+        parent = rec._open[-1] if rec._open else None
+        index = len(rec.spans)
+        self.span = Span(self.name, parent, index if parent is None else rec.spans[parent].request, self.counters)
+        rec.spans.append(self.span)
+        rec._open.append(index)
+        self.span.start = time.perf_counter_ns()
+        return self.span
+
+    def __exit__(self, *exc):
+        self.span.end = time.perf_counter_ns()
+        self.record._open.pop()
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        return False
+
+
+def span(name, **counters):
+    """A context manager around one stage: recorded as ``name`` with the
+    initial ``counters`` while a ``recording()`` block is open, else one
+    shared ``contextlib.nullcontext()``."""
+    if _record is None:
+        return _OFF
+    return _Recorded(_record, name, counters)
+
+
+def count(name, n=1):
+    """Add ``n`` to counter ``name`` of the innermost open span (nothing
+    while recording is off or no span is open).  ``n`` is a value the host
+    holds already, never one read from the device for the count."""
+    if _record is None or not _record._open:
+        return
+    counters = _record.spans[_record._open[-1]].counters
+    counters[name] = counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans and counters for the block; yields its ``Record``.
+    The recording open before the block, if any, resumes after it."""
+    global _record
+    outer, _record = _record, Record()
+    try:
+        yield _record
+    finally:
+        _record = outer

@@ -274,6 +274,8 @@ TPU_ONLY = {
     ("tiled", "tiled_suite"): ({"interpret"}, _INTERPRET),
     ("utils/checkpoint", "load_stage"): ({"like"}, "the orbax branch's restore template; the port reads "
                                          "and writes the .npz branch"),
+    ("utils/timing", "grid_points_per_second"): (None, "a division no caller of the port reads; the "
+                                                 "benchmark reports cells a second itself"),
 }
 
 

@@ -1,0 +1,164 @@
+"""The port's spans and counters (``utils.timing.span``, ``count``,
+``recording``) in ``descriptor_suite``, ``derive_terrain`` and the
+one-device ``sharded_classify_flood``: how they nest, what they count, that
+they change no output, and that nothing is recorded while recording is off."""
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from descriptools_tpu_torch import pipeline
+from descriptools_tpu_torch.ops import terrain
+from descriptools_tpu_torch.ops.flow import _doubling_rounds
+from descriptools_tpu_torch.parallel import classify
+from descriptools_tpu_torch.utils import timing
+from descriptools_tpu_torch.utils.synthetic import synthetic_basin
+
+CFG = pipeline.PipelineConfig()
+TREES = {
+    "suite": ["suite.inputs", "suite.stencil", "suite.downslope", "suite.flow", "suite.hand", "suite.gfi"],
+    "terrain": ["terrain.d8", "terrain.accumulation"],
+    "classify": ["classify.stats", "classify.search", "classify.map"],
+}
+
+
+@pytest.fixture(scope="module")
+def basin():
+    dem, fdr, river, fac = synthetic_basin(40, 56, seed=3)
+    return [torch.as_tensor(a) for a in (dem.astype(np.int32), fdr, fac.astype(np.int32), river)]
+
+
+@pytest.fixture(scope="module")
+def calls(basin):
+    """One call of each entry point, on the basin: (name, call)."""
+    hand = pipeline.descriptor_suite(*basin, CFG)["hand"]
+    flood = ((hand != -100) & (hand <= 6)).to(torch.uint8)
+    return {
+        "suite": lambda: pipeline.descriptor_suite(*basin, CFG),
+        "terrain": lambda: terrain.derive_terrain(basin[0]),
+        "classify": lambda: classify.sharded_classify_flood(hand, flood, device="cpu"),
+    }
+
+
+@pytest.mark.parametrize("entry", list(TREES))
+def test_spans_nest_with_one_request_per_call(calls, entry):
+    with timing.recording() as rec:
+        calls[entry]()
+        calls[entry]()
+    n = 1 + len(TREES[entry])
+    assert [s.name for s in rec.spans] == ([entry] + TREES[entry]) * 2
+    for root in (0, n):
+        spans = rec.spans[root:root + n]
+        assert spans[0].parent is None and all(s.parent == root for s in spans[1:])
+        assert {s.request for s in spans} == {root}
+        assert all(spans[0].start <= s.start <= s.end <= spans[0].end for s in spans)
+        assert all(a.end <= b.start for a, b in zip(spans[1:], spans[2:]))
+    assert not rec._open
+
+
+def test_recording_nests_and_restores():
+    with timing.recording() as outer:
+        with timing.span("a"):
+            with timing.recording() as inner:
+                with timing.span("b", k=1):
+                    timing.count("k", 2)
+            timing.count("k")
+    assert [(s.name, s.counters) for s in outer.spans] == [("a", {"k": 1})]
+    assert [(s.name, s.counters) for s in inner.spans] == [("b", {"k": 3})]
+
+
+def test_recording_off_records_nothing(calls):
+    assert timing.span("a") is timing.span("b", k=1)
+    assert isinstance(timing.span("a"), contextlib.nullcontext)
+    with timing.span("a"):
+        timing.count("k")
+    calls["terrain"]()
+    with timing.recording() as rec:
+        timing.count("k")  # no span open: dropped
+    assert rec.spans == []
+
+
+@pytest.mark.parametrize("on", [False, True], ids=["off", "on"])
+def test_profiler_sees_spans_only_while_recording(calls, on):
+    from torch.profiler import ProfilerActivity
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU]) as prof:
+        with timing.recording() if on else contextlib.nullcontext():
+            calls["terrain"]()
+    names = {e.name for e in prof.events() if e.name.startswith("dt.")}
+    assert names == ({"dt.terrain", "dt.terrain.d8", "dt.terrain.accumulation"} if on else set())
+
+
+def _same(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _same(a[k], b[k])
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+    elif isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    else:
+        assert a == b
+
+
+@pytest.mark.parametrize("entry", list(TREES))
+def test_outputs_bitwise_with_recording_on_and_off(calls, entry):
+    off = calls[entry]()
+    with timing.recording():
+        on = calls[entry]()
+    _same(on, off)
+
+
+@pytest.mark.parametrize("max_path", [None, 4])
+def test_accumulation_counters(basin, max_path):
+    """``rounds`` is ``stats["rounds"]``, ``live_cells`` the sum of
+    ``stats["live"]``, and ``host_reads`` 1 + 2 a round: the live list's
+    length once to start, then the two boolean indexings of each round."""
+    stats = {}
+    with timing.recording() as rec:
+        terrain.derive_terrain(basin[0], max_path=max_path, stats=stats)
+    by = {s.name: s.counters for s in rec.spans}
+    assert by["terrain"] == {} and by["terrain.d8"] == {"host_writes": 8}
+    assert by["terrain.accumulation"] == dict(
+        host_reads=1 + 2 * stats["rounds"], rounds=stats["rounds"], live_cells=sum(stats["live"]))
+    assert stats["rounds"] == 2 if max_path == 4 else stats["rounds"] > 2  # truncated at log2(4) rounds
+
+
+def test_flow_rounds_counted(calls):
+    with timing.recording() as rec:
+        calls["suite"]()
+    by = {s.name: s.counters for s in rec.spans}
+    assert by["suite.flow"] == {"rounds": _doubling_rounds(CFG.flow_max_steps)}
+    assert all(c == {} for name, c in by.items() if name != "suite.flow")
+
+
+@pytest.mark.parametrize("path", ["histogram", "counting"])
+def test_classify_counts_its_host_reads_and_writes(calls, monkeypatch, path):
+    """The classifier's ``host_reads`` are its ``.cpu()`` reads and two a
+    ``bincount`` (its input's least and largest values): the statistics'
+    one, then the histogram's three and the ``bincount``'s two, or one a
+    counting pass (five search stages and the final count).  Its
+    ``host_writes`` are its 0-dim tensors made from host values (the
+    second minimum's fill, the histogram's base, the class map's cut) and
+    one list of cuts a counting pass."""
+    if path == "counting":
+        monkeypatch.setattr(classify, "NBINS_MAX", 0)
+    reads, writes = [], []
+    real_cpu, real_bincount, real_tensor, real_as = torch.Tensor.cpu, torch.bincount, torch.tensor, torch.as_tensor
+    monkeypatch.setattr(torch.Tensor, "cpu", lambda self, *a, **k: reads.append(1) or real_cpu(self, *a, **k))
+    monkeypatch.setattr(torch, "bincount", lambda *a, **k: reads.extend([1, 1]) or real_bincount(*a, **k))
+    monkeypatch.setattr(torch, "tensor", lambda *a, **k: writes.append(1) or real_tensor(*a, **k))
+    monkeypatch.setattr(torch, "as_tensor", lambda x, *a, **k: (  # a list of cuts, not the flood map
+        writes.append(1) if isinstance(x, list) else None) or real_as(x, *a, **k))
+    with timing.recording() as rec:
+        calls["classify"]()
+    by = {s.name: (s.counters.get("host_reads", 0), s.counters.get("host_writes", 0)) for s in rec.spans}
+    assert by == {"classify": (0, 0), "classify.stats": (1, 1),
+                  "classify.search": (5, 1) if path == "histogram" else (6, 6), "classify.map": (0, 1)}
+    assert sum(r for r, _ in by.values()) == len(reads)
+    assert sum(w for _, w in by.values()) == len(writes)
