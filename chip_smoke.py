@@ -612,8 +612,9 @@ def issue_per_ms():
 
 
 def jump_profile(cases, card):
-    """The jump walk (``flow_walk``) on each case, held bitwise against
-    ``doubling_walk``: its time (CUDA events) beside the plain version's,
+    """The jump walk over walk operands (``absorbing_walk``, the local
+    phase's entry) on each case, held bitwise against ``doubling_walk``:
+    its time (CUDA events) beside the plain version's,
     its device time by phase (torch.profiler: the memset, phase 1 and the
     rounds), R and the cells entering each round (read after a
     synchronisation, here only)."""
@@ -623,19 +624,19 @@ def jump_profile(cases, card):
     bound = walk.jump_bound()
     for label, (ops, cap) in cases.items():
         want = flow.doubling_walk(*ops, cap)
-        got = walk.flow_walk(*ops, cap)
+        got = walk.absorbing_walk(*ops, cap)
         torch.cuda.synchronize()
         for name, g, w in zip(("code", "a", "b"), got, want):
             check_bitwise(f"jump/{label}/{name}", g, w)
-        pending, rounds = walk.flow_walk.pending.tolist(), walk.flow_walk.rounds
-        whole = median_ms(lambda: walk.flow_walk(*ops, cap))
+        pending, rounds = walk.absorbing_walk.pending.tolist(), walk.absorbing_walk.rounds
+        whole = median_ms(lambda: walk.absorbing_walk(*ops, cap))
         plain_ms = median_ms(lambda: flow.doubling_walk(*ops, cap))
         steps = got[1] + got[2]
-        print(f"jump flow_walk {label}: B {bound}, R {rounds}, cells entering each round "
+        print(f"jump absorbing_walk {label}: B {bound}, R {rounds}, cells entering each round "
               f"{pending[:-1]} ({pending[0]} pending after phase 1); walk steps mean "
               f"{float(steps.float().mean()):.3f}, max {int(steps.max())}; kernel {whole:.3f} ms, "
               f"plain doubling_walk {plain_ms:.3f} ms  [{card}]")
-        dev_ms, held, made = device_ms(lambda: walk.flow_walk(*ops, cap),
+        dev_ms, held, made = device_ms(lambda: walk.absorbing_walk(*ops, cap),
                                        {"Memset (Device)": 1, "jump_start": 1, "jump_round": rounds})
         shown = {k: "not measured" if v is None else f"{v:.4f} ms" for k, v in dev_ms.items()}
         print(f"jump device time {label} (torch.profiler, per call; the trace held {held} of {made} "
@@ -869,21 +870,23 @@ def phase_kernels(dev, basin, errs):
         print(f"kernel downslope_walk {label:<36} matches plain bitwise (downslope)")
 
     def flow_case(label, fdr, river, max_steps):
-        fdr_t = torch.as_tensor(fdr, device=dev)
-        fdr_eff, code0 = flow.walk_inputs(fdr_t, torch.as_tensor(river, device=dev))
-        got = walk.flow_walk(fdr_eff, code0, max_steps)
+        """K4 (``flow_cuda``, from the rasters) against the plain engine on
+        fdist's bits and indices; the jump walk over the same operands
+        (``absorbing_walk``) on code, a and b."""
+        fdr_t, river_t = torch.as_tensor(fdr, device=dev), torch.as_tensor(river, device=dev)
+        fdr_eff, code0 = flow.walk_inputs(fdr_t, river_t)
         want = flow.doubling_walk(fdr_eff, code0, max_steps)
         e = 0.0
-        for name, g, w in zip(("code", "a", "b"), got, want):
-            e += check_bitwise(f"flow/{label}/{name}", g, w)
-        for name, g, w in zip(
-            ("fdist", "indices"),
-            flow.flow_from_state(*got, 12.5, max_steps),
-            flow.flow_from_state(*want, 12.5, max_steps),
-        ):
-            e += check_bitwise(f"flow/{label}/{name}", g, w)
+        for name, g, w in zip(("fdist", "indices"), walk.flow_cuda(fdr_t, river_t, 12.5, max_steps),
+                              flow.flow_from_state(*want, 12.5, max_steps)):
+            e += check_bitwise(f"flow/{label}/{name}", g.view(torch.int32), w.view(torch.int32))
         errs["flow_walk"] = max(errs["flow_walk"], e)
-        print(f"kernel flow_walk      {label:<26} matches plain bitwise (code, a, b, fdist, indices)")
+        e = 0.0
+        for name, g, w in zip(("code", "a", "b"), walk.absorbing_walk(fdr_eff, code0, max_steps), want):
+            e += check_bitwise(f"jump/{label}/{name}", g, w)
+        errs["absorbing_walk"] = max(errs["absorbing_walk"], e)
+        print(f"kernel flow_walk      {label:<26} matches plain bitwise (fdist bits, indices; absorbing_walk's "
+              f"code, a, b)")
 
     def fold_case(label, fdr, river, max_steps):
         fdr_eff, code0 = flow.walk_inputs(torch.as_tensor(fdr, device=dev), torch.as_tensor(river, device=dev))
@@ -897,9 +900,10 @@ def phase_kernels(dev, basin, errs):
         fd, idx = flow.flow_from_fold(*got)
         for name, g, w in zip(("fdist", "indices"), (fd, idx), flow.flow_from_fold(*want)):
             e = max(e, check_bitwise(f"fold/{label}/{name}", g, w))
-        state = walk.flow_walk(fdr_eff, code0, max_steps)
-        counts = flow.flow_from_state(*state, 12.5, max_steps)
-        check_bitwise(f"fold/{label}/indices vs flow_walk", idx, counts[1])
+        state = walk.absorbing_walk(fdr_eff, code0, max_steps)
+        counts = walk.flow_cuda(torch.as_tensor(fdr, device=dev), torch.as_tensor(river, device=dev), 12.5,
+                                max_steps)
+        check_bitwise(f"fold/{label}/indices vs flow_cuda", idx, counts[1])
         # P and K follow from the depths.
         depth, width = state[1] + state[2], walk.fold_width()
         if pending != int((depth > width).sum()) or rounds != max(int(depth.max()) - 1, 0) // width:
@@ -908,7 +912,7 @@ def phase_kernels(dev, basin, errs):
         errs["flow_walk_blocked"] = max(errs["flow_walk_blocked"], e)
         landed = int((idx != -100).sum())
         print(f"kernel flow_walk_blocked {label:<30} matches plain bitwise (code, dist, fdist, indices; "
-              f"indices = flow_walk's); K {rounds} rounds, P {pending} pending, {start_steps} fold-start "
+              f"indices = flow_cuda's); K {rounds} rounds, P {pending} pending, {start_steps} fold-start "
               f"steps, {landed} of {idx.numel()} landed, fdist differs from counts on "
               f"{int((fd != counts[0]).sum())} cells")
 
@@ -941,18 +945,23 @@ def phase_kernels(dev, basin, errs):
     for delta in (-1, 0, 1):
         fdr, river, cap = b_boundary(walk.jump_bound(), 5, delta)
         flow_case(f"B-boundary row, cap {cap}", fdr, river, cap)
-    # No hidden host synchronisation in the walk's launches.
-    fl = flow.walk_inputs(*(torch.as_tensor(t, device=dev) for t in lateral_channel(ROWS, COLS)))
+    # No hidden host synchronisation in either jump walk entry's launches.
+    raster = tuple(torch.as_tensor(t, device=dev) for t in lateral_channel(ROWS, COLS))
+    fl = flow.walk_inputs(*raster)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = walk.flow_walk(*fl, 20000)
+        got = walk.absorbing_walk(*fl, 20000)
+        fused = walk.flow_cuda(*raster, 12.5, 20000)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    for name, g, w in zip(("code", "a", "b"), got, flow.doubling_walk(*fl, 20000)):
-        check_bitwise(f"flow/sync debug/{name}", g, w)
-    print(f"kernel flow_walk      lateral channel {ROWS}x{COLS} under sync debug mode 'error': "
-          f"no host synchronisation, matches plain bitwise")
+    want = flow.doubling_walk(*fl, 20000)
+    for name, g, w in zip(("code", "a", "b"), got, want):
+        check_bitwise(f"jump/sync debug/{name}", g, w)
+    for name, g, w in zip(("fdist", "indices"), fused, flow.flow_from_state(*want, 12.5, 20000)):
+        check_bitwise(f"flow/sync debug/{name}", g.view(torch.int32), w.view(torch.int32))
+    print(f"kernel flow_walk and absorbing_walk, lateral channel {ROWS}x{COLS} under sync debug mode 'error': "
+          f"no host synchronisation, match plain bitwise")
     fold_case(f"basin {ROWS}x{COLS}", basin["fdr"], basin["river"], 20000)
     fold_case(f"lateral channel {ROWS}x{COLS}", *lateral_channel(ROWS, COLS), 20000)
     fold_case(f"north rivers {ROWS}x{COLS}", *north_rivers(ROWS, COLS), 20000)
@@ -1190,6 +1199,7 @@ def phase_long_drainage(dev, card):
         ops = flow.walk_inputs(inputs[1], inputs[3])
         cap = cfg.flow_max_steps
         jump_profile({f"long drainage {tag}": (ops, cap)}, card)
+        k4_device_time(f"long drainage {tag}", inputs[1], inputs[3], cap, card)
         fold_profile({f"long drainage {tag}": (ops, cap, 1)}, card)
         del ops
 
@@ -1310,6 +1320,29 @@ def stencil_device_time(label, fn, t, own, sass, card):
           f"issue rate: issued at {100 * own_ms / kernel:.1f} %  [{card}]")
 
 
+def k4_device_time(label, fdr, river, cap, card):
+    """Print the device time of one in-core flow entry call (``flow_cuda``;
+    torch.profiler) by step: the memset, phase 1, the R rounds and
+    ``flow_finish_kernel``, beside its event time and its bound: fdr and
+    river read once, fdist and indices written once."""
+    from descriptools_tpu_torch.ops.cuda import walk
+
+    fn = lambda: walk.flow_cuda(fdr, river, 12.5, cap)
+    out = fn()
+    rounds = walk.flow_walk.rounds
+    bound = sum(t.numel() * t.element_size() for t in (fdr, river, *out)) / HBM_BYTES_PER_MS
+    dev_ms, held, made = device_ms(fn, {"Memset (Device)": 1, "jump_start": 1, "jump_round": rounds,
+                                        "flow_finish": 1})
+    shown = {k: "not measured" if v is None else f"{v:.4f} ms" for k, v in dev_ms.items()}
+    whole = sum(v for v in dev_ms.values() if v is not None)
+    share = f"{100 * bound / whole:.1f} %" if whole else "not measured"
+    print(f"device time flow_walk {label} (torch.profiler, per call; the trace held {held} of {made} launches): "
+          f"memset {shown['Memset (Device)']}, phase 1 {shown['jump_start']}, {rounds} rounds "
+          f"{shown['jump_round']}, finish {shown['flow_finish']}; in all {whole:.4f} ms; event "
+          f"{median_ms(fn):.4f} ms; bound {bound:.4f} ms (fdr {fdr.dtype} and river read, fdist and indices "
+          f"written), {share} of it  [{card}]")
+
+
 def phase_timing(dev, inputs, card, sass):
     """Kernels beside their plain versions, then the suite, at the basin's
     shape."""
@@ -1329,9 +1362,12 @@ def phase_timing(dev, inputs, card, sass):
                     lambda: st.stencil_plain(*stencil_in, 12.5, 0.1), sass["floor"]),
         "downslope_walk": (down_in, lambda: (walk.downslope_walk(*down_in, 12.5, 5.0, 5000),),
                            lambda: (down._downslope_jacobi(*down_in, 12.5, 5.0, 5000),), 0),
-        "flow_walk": (f_ops, lambda: walk.flow_walk(*f_ops, 20000),
-                      lambda: flow.doubling_walk(*f_ops, 20000), 0),
+        # K4 as the suite runs it: fdr and river read, fdist and indices written.
+        "flow_walk": ((fdr, river), lambda: walk.flow_cuda(fdr, river, 12.5, 20000),
+                      lambda: flow.flow_from_state(*flow.doubling_walk(*f_ops, 20000), 12.5, 20000), 0),
     }
+    for name, g, w in zip(("fdist", "indices"), calls["flow_walk"][1](), calls["flow_walk"][2]()):
+        check_bitwise(f"time flow_walk/{name}", g.view(torch.int32), w.view(torch.int32))
     times = {name: timed(*call, sass["issue"]) for name, call in calls.items()}
     for name, t in times.items():
         print(f"time {name:<15} kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
@@ -1339,11 +1375,12 @@ def phase_timing(dev, inputs, card, sass):
               f"operations {t['ops_ms']:.4f})  [{card}]")
     stencil_device_time(f"stencil {ROWS}x{COLS}", calls["stencil"][1], times["stencil"],
                         sass["own"]["stencil"], sass, card)
+    k4_device_time(f"{ROWS}x{COLS}", fdr, river, 20000, card)
     cfg = pipeline.PipelineConfig()
     one_kernel(f"the in-core downslope stage {ROWS}x{COLS}",
                lambda: pipeline._engine_downslope(dem_f, fdr, cfg, "cuda"), "downslope_kernel", card)
     pk, _ = down.jacobi_walk(*down.walk_inputs(dem_f, fdr, 12.5), 5.0, 5000)
-    _, a, b = walk.flow_walk(*f_ops, 20000)
+    _, a, b = walk.absorbing_walk(*f_ops, 20000)
     for name, steps in (("downslope", (pk & 0xFFFF) + (pk >> 16)), ("flow", a + b)):
         print(f"basin {name} walk steps: mean {float(steps.float().mean()):.3f}, max {int(steps.max())}")
     # The synthetic basin's walks are short; time both walks where every

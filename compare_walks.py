@@ -11,10 +11,12 @@ and its kernels (built into that checkout's ``build/``) come from there.
 The inputs come from this file's directory (``chip_smoke.py``'s
 generators), the same in every process.  Each process times, on one card:
 
-- ``flow_walk`` (K4) at 2178x1534, cap 20000, on the synthetic basin, on
-  northward flow into a river row every 101 rows (walks of 0 to 100 steps)
-  and on the lateral channel (walks of up to 3710 steps);
-- ``absorbing_walk`` (K5/K8) on tile (0, 0) of the tiled phase's 8192x8192
+- the in-core flow entry (K4, ``ops.cuda.walk.flow_cuda``: fdr and river
+  to fdist and indices) at 2178x1534, cap 20000, on the synthetic basin,
+  on northward flow into a river row every 101 rows (walks of 0 to 100
+  steps) and on the lateral channel (walks of up to 3710 steps);
+- ``absorbing_walk`` (K5/K8, the jump walk over walk operands) on the same
+  three grids' operands and on tile (0, 0) of the tiled phase's 8192x8192
   grid in 4096x4096 tiles;
 - ``flow_walk_blocked`` (K7) at 2178x1534, cap 20000, on the basin, the
   north rivers and the lateral channel;
@@ -34,8 +36,8 @@ generators), the same in every process.  Each process times, on one card:
   compose it;
 - the in-core suite's stages on the synthetic basin, each alone (stencil;
   downslope, and for an operand-level checkout its ``walk_inputs``, kernel
-  and post-pass apart; the flow walk's ``walk_inputs``, kernel and
-  post-pass; HAND and river fac; GFI and ln(hl/H));
+  and post-pass apart; the flow stage, ``flow_cuda``; HAND and river fac;
+  GFI and ln(hl/H));
 - ``descriptor_suite`` on the synthetic basin, default configuration and
   ``engine="cuda_blocked"`` (with the latter's peak device memory), and the
   default suite on tile (0, 0)'s 4096x4096 inputs with its peak device
@@ -45,7 +47,8 @@ With ``--downslope`` each process times the downslope stage alone (a
 sweep of kernel variants: copies of ``descriptools_tpu_torch`` with
 ``csrc/walk.cu`` edited).
 
-each count walk held bitwise against ``doubling_walk`` and each fold walk
+each count walk held bitwise against ``doubling_walk`` (the flow entry's
+fdist and indices against ``flow_from_state`` of it) and each fold walk
 against ``fold_walk``, each time the median of
 20 CUDA-event runs after a warm-up.  Every process prints its numbers, and
 whether the stencils' and the downslope's rasters are identical in every
@@ -112,24 +115,29 @@ def one(tree, only_downslope=False):
         print(json.dumps({"tree": tree, "package": package, "downslope": downslope, "stages_ms": stages,
                           "walk_step_sass": walk_step_sass(cs, build)}))
         return
-    on_dev = lambda arrays: flow.walk_inputs(*(torch.as_tensor(a, device=dev) for a in arrays))
-    cases = {
-        "flow_walk basin": (walk.flow_walk, flow.walk_inputs(inputs[1], inputs[3])),
-        "flow_walk north rivers": (walk.flow_walk, on_dev(cs.north_rivers(cs.ROWS, cs.COLS))),
-        "flow_walk lateral channel": (walk.flow_walk, on_dev(cs.lateral_channel(cs.ROWS, cs.COLS))),
+    on_dev = lambda arrays: tuple(torch.as_tensor(a, device=dev) for a in arrays)
+    rasters = {
+        "basin": (inputs[1], inputs[3]),
+        "north rivers": on_dev(cs.north_rivers(cs.ROWS, cs.COLS)),
+        "lateral channel": on_dev(cs.lateral_channel(cs.ROWS, cs.COLS)),
     }
+    operands = {label: flow.walk_inputs(*r) for label, r in rasters.items()}
     loaders = windowed_basin(cs.BIG, cs.BIG, seed=0)
     tile = [torch.as_tensor(loaders[k](0, cs.TILE, 0, cs.TILE), device=dev) for k in ("fdr", "river")]
     loc = boundary.local_walk_operands(*tile, 0, 0, cs.TILE, cs.TILE, cs.BIG, cs.BIG)[:2]
-    cases["absorbing_walk 4096x4096 tile"] = (walk.absorbing_walk, loc)
     ms = {}
-    for label, (fn, ops) in cases.items():
-        for name, g, w in zip(("code", "a", "b"), fn(*ops, 20000), flow.doubling_walk(*ops, 20000)):
-            cs.check_bitwise(f"{label}/{name}", g, w)
-        ms[label] = median_ms(torch, lambda: fn(*ops, 20000))
+    for label, ops in (*operands.items(), ("4096x4096 tile", loc)):
+        want = flow.doubling_walk(*ops, 20000)
+        for name, g, w in zip(("code", "a", "b"), walk.absorbing_walk(*ops, 20000), want):
+            cs.check_bitwise(f"absorbing_walk {label}/{name}", g, w)
+        ms[f"absorbing_walk {label}"] = median_ms(torch, lambda: walk.absorbing_walk(*ops, 20000))
+        if label in rasters:
+            k4 = lambda r=rasters[label]: walk.flow_cuda(*r, 12.5, 20000)
+            for name, g, w in zip(("fdist", "indices"), k4(), flow.flow_from_state(*want, 12.5, 20000)):
+                cs.check_bitwise(f"flow_cuda {label}/{name}", g.view(torch.int32), w.view(torch.int32))
+            ms[f"flow_cuda {label}"] = median_ms(torch, k4)
     consts = flow.step_consts(12.5)
-    for label in ("basin", "north rivers", "lateral channel"):
-        ops = cases[f"flow_walk {label}"][1]
+    for label, ops in operands.items():
         for name, g, w in zip(("code", "dist"), walk.flow_walk_blocked(*ops, *consts, 20000),
                               flow.fold_walk(*ops, *consts, 20000)):
             cs.check_bitwise(f"flow_walk_blocked {label}/{name}", g, w)
@@ -250,9 +258,7 @@ def downslope_and_stages(torch, cs, dev, inputs, loaders):
     del d_ext, f_ext
     # The in-core suite's stages, each alone.
     cfg = pipeline.PipelineConfig()
-    f_ops = flow.walk_inputs(fdr, river)
-    state = walk.flow_walk(*f_ops, cfg.flow_max_steps)
-    _, indices = flow.flow_from_state(*state, px, cfg.flow_max_steps)
+    _, indices = walk.flow_cuda(fdr, river, px, cfg.flow_max_steps)
     hand, river_fac = flow.hand_and_river_fac(dem, fac, indices)
     stages = {
         "stencil": lambda: pipeline._engine_stencil(dem_f, fac, cfg, "cuda"),
@@ -267,9 +273,7 @@ def downslope_and_stages(torch, cs, dev, inputs, loaders):
             "downslope post-pass": lambda: down.downslope_from_state(d_ops[1], pk, zt, px),
         })
     stages.update({
-        "flow walk_inputs": lambda: flow.walk_inputs(fdr, river),
-        "flow kernel": lambda: walk.flow_walk(*f_ops, cfg.flow_max_steps),
-        "flow post-pass": lambda: flow.flow_from_state(*state, px, cfg.flow_max_steps),
+        "flow": lambda: walk.flow_cuda(fdr, river, px, cfg.flow_max_steps),
         "HAND + river fac": lambda: flow.hand_and_river_fac(dem, fac, indices),
         "GFI + ln(hl/H)": lambda: (pipeline._gfi(hand, river_fac, cfg.n_gfi, cfg.b_gfi, px),
                                    pipeline.ln_hl_h(hand, fac, cfg.n_gfi, cfg.b_gfi, px)),

@@ -70,7 +70,10 @@
 // The jump walk (flow and absorbing walks): every cell's absorber (the
 // first absorbing cell on its path) and its cardinal and diagonal step
 // counts, or (UNRES, 0, 0) where none lies within max_steps steps.
-//   Bound: 20 B per cell (fdr_eff and code0 read, code, a and b written).
+//   Bound: 20 B per cell (fdr_eff and code0 read, code, a and b written);
+//   launched from the rasters (launch_flow_walk, below), 5 B read (fdr
+//   int32 and river; 2 B with uint8 fdr) and the 12 B of (code, a, b)
+//   written, which the finish reads again to write fdist and indices (8 B).
 //   What held the serial walk back: one thread per start cell walked its
 //   whole path, O(N*L) dependent steps for N cells and paths of L steps
 //   (6.2e9 on a 2178x1534 lateral channel with paths of up to 3710 steps),
@@ -101,10 +104,27 @@
 //   spread over the basin and the lateral channel, and 16 and 128 slower
 //   (PERF.md); a sweep rebuilds with another value.
 //
-// The jump walk's inputs are the walk operands built by the PyTorch
-// wrappers (descriptools_tpu_torch/ops/flow.py::walk_inputs): fdr_eff is 0
-// at every absorbing cell, and every non-zero fdr_eff is a valid D8 code
-// whose step stays inside the grid.
+// Phase 1 reads its cells in one of two forms (the Cells parameter of
+// jump_start_kernel; the rounds read neither):
+// - OperandCells, launched by launch_jump_walk: the walk operands fdr_eff
+//   and code0 that the caller built (descriptools_tpu_torch/ops/flow.py::
+//   walk_inputs, or a block's local phase, parallel/boundary.py): code0 is
+//   the absorber's code at every absorbing cell, and fdr_eff is 0 there
+//   and a D8 code whose step stays inside the grid elsewhere;
+// - RawCells, launched by launch_flow_walk (the in-core flow walk, K4):
+//   fdr as given (uint8 or int32) and the river mask (one byte a cell).
+//   The thread forms each cell's role itself, at its start cell and at
+//   every cell it enters, by ops/flow.py::flow_states' truth table: fdr 0
+//   is a NaN absorber (code -idx-1); a river cell (river == 1) with any
+//   other fdr is a river absorber (code idx), whatever its code; a code
+//   outside the D8 set, or a step off the grid, is a NaN absorber; every
+//   other cell steps.  The walk keeps its row and column for the edge.
+//   walk_inputs' operands are never formed: phase 1 reads 5 B a cell (2 B
+//   with uint8 fdr) where the operands are 8.
+// launch_flow_walk then forms fdist and indices in one more launch
+// (flow_finish_kernel, ops/flow.py::flow_from_state in its order), so the
+// in-core flow stage is one C entry: a memset, phase 1, R rounds and the
+// finish, with no torch op between them.
 
 #include <climits>
 
@@ -275,28 +295,66 @@ __device__ __forceinline__ int append_slot(int* count) {
   return g.shfl(base, 0) + static_cast<int>(g.thread_rank());
 }
 
+// Phase 1's cells as walk operands: code0 gives a cell's code, fdr_eff the
+// step of a cell that walks on (a code that does not decode: stuck, the
+// walk never lands).  fdr_eff is read at unresolved cells alone: it is 0
+// at every absorbing cell.
+struct OperandCells {
+  const int* __restrict__ fdr_eff;
+  const int* __restrict__ code0;
+
+  __device__ __forceinline__ int visit(int cur, int, int, int, int, int& dy, int& dx,
+                                       bool& diag, bool& moves) const {
+    const int code = code0[cur];
+    moves = code == kUnres && d8_step(fdr_eff[cur], dy, dx, diag);
+    return code;
+  }
+};
+
+// Phase 1's cells as raw rasters: the role of cell cur at (r, c) by
+// flow_states' truth table.  kUnres and moves where the cell steps.
+template <typename Fdr>
+struct RawCells {
+  const Fdr* __restrict__ fdr;
+  const unsigned char* __restrict__ river;
+
+  __device__ __forceinline__ int visit(int cur, int r, int c, int rows, int cols, int& dy,
+                                       int& dx, bool& diag, bool& moves) const {
+    const int f = static_cast<int>(fdr[cur]);
+    const bool is_river = river[cur] == 1;
+    const bool inside = d8_decode(f, dy, dx, diag) &&
+                        static_cast<unsigned>(r + dy) < static_cast<unsigned>(rows) &&
+                        static_cast<unsigned>(c + dx) < static_cast<unsigned>(cols);
+    moves = f != 0 && !is_river && inside;
+    if (moves) return kUnres;
+    return f != 0 && is_river ? cur : -cur - 1;
+  }
+};
+
 // Phase 1: the serial walk, cut after kJumpB steps.
-__global__ void jump_start_kernel(const int* __restrict__ fdr_eff,
-                                  const int* __restrict__ code0,
-                                  int* __restrict__ code_out, int* __restrict__ a_out,
-                                  int* __restrict__ b_out, int* __restrict__ done,
-                                  int2* __restrict__ state, int* __restrict__ list,
-                                  int* __restrict__ count, int rows, int cols,
-                                  int max_steps) {
+template <typename Cells>
+__global__ void jump_start_kernel(Cells cells, int* __restrict__ code_out,
+                                  int* __restrict__ a_out, int* __restrict__ b_out,
+                                  int* __restrict__ done, int2* __restrict__ state,
+                                  int* __restrict__ list, int* __restrict__ count, int rows,
+                                  int cols, int max_steps) {
   int idx;
   if (!cell_of_thread(rows, cols, idx)) return;
   const int limit = min(kJumpB, max_steps);
   int cur = idx;
-  int code = code0[idx];
+  int r = idx / cols, c = idx - r * cols;  // read by RawCells alone
+  int dy, dx;
+  bool diag, moves;
+  int code = cells.visit(cur, r, c, rows, cols, dy, dx, diag, moves);
   int a = 0, b = 0, s = 0;
   for (; code == kUnres && s < limit; ++s) {
-    int dy, dx;
-    bool diag;
-    if (!d8_step(fdr_eff[cur], dy, dx, diag)) break;  // stuck: never lands
+    if (!moves) break;  // stuck: never lands
     a += diag ? 0 : 1;
     b += diag ? 1 : 0;
     cur += dy * cols + dx;
-    code = code0[cur];
+    r += dy;
+    c += dx;
+    code = cells.visit(cur, r, c, rows, cols, dy, dx, diag, moves);
   }
   // A stuck walk breaks with s < limit; one cut at max_steps has limit ==
   // max_steps.  Only a walk cut at kJumpB < max_steps goes on.
@@ -357,6 +415,25 @@ __global__ void jump_round_kernel(int* code_out, int* a_out, int* b_out, int* do
   }
 }
 
+// After the rounds: fdist and indices from the walk's (code, a, b), as
+// ops/flow.py::flow_from_state forms them: where the walk landed on a river
+// within max_steps, a * c_card + b * c_diag in that order (separate
+// roundings, as -fmad=false keeps them too) and the river's index; -100 in
+// both elsewhere.
+__global__ void flow_finish_kernel(const int* __restrict__ code, const int* __restrict__ a,
+                                   const int* __restrict__ b, float* __restrict__ fdist,
+                                   int* __restrict__ indices, int rows, int cols,
+                                   int max_steps, float c_card, float c_diag) {
+  int idx;
+  if (!cell_of_thread(rows, cols, idx)) return;
+  const int k = code[idx], na = a[idx], nb = b[idx];
+  const bool landed = k >= 0 && na + nb <= max_steps;
+  fdist[idx] = landed ? __fadd_rn(__fmul_rn(__int2float_rn(na), c_card),
+                                  __fmul_rn(__int2float_rn(nb), c_diag))
+                      : kNoData;
+  indices[idx] = landed ? k : static_cast<int>(kNoData);
+}
+
 unsigned blocks_for(int rows, int cols, int threads) {
   const long long n = static_cast<long long>(rows) * cols;
   return static_cast<unsigned>((n + threads - 1) / threads);
@@ -375,6 +452,40 @@ int jump_rounds(int max_steps) {
 int round_blocks(int& blocks) {
   static int cached[64] = {};
   return persistent_blocks(jump_round_kernel, kThreads, cached, blocks);
+}
+
+// The whole jump walk on the stream, no host read: counts zeroed, phase 1
+// over `cells`, then R rounds, round k reading (state, list) k % 2 and
+// writing the other pair.  Writes R to *rounds (host memory).  counts,
+// n_counts ints (counts[k] is the length of round k's list; R + 1 of them
+// are used); scratch, 7n ints: state_x[2n], state_y[2n] (int2 each),
+// done[n], list_x[n], list_y[n].
+template <typename Cells>
+int jump_walk(Cells cells, int* code, int* a, int* b, int* counts, int n_counts, int* scratch,
+              int rows, int cols, int max_steps, int* rounds, cudaStream_t stream) {
+  const int r = jump_rounds(max_steps);
+  *rounds = r;
+  if (r + 1 > n_counts) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = static_cast<long long>(rows) * cols;
+  if (n == 0) return 0;
+  int2* state[2] = {reinterpret_cast<int2*>(scratch), reinterpret_cast<int2*>(scratch + 2 * n)};
+  int* done = scratch + 4 * n;
+  int* list[2] = {done + n, done + 2 * n};
+  int blocks = 0;
+  int err = round_blocks(blocks);
+  if (err != 0) return err;
+  cudaError_t e = cudaMemsetAsync(counts, 0, (r + 1) * sizeof(int), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  jump_start_kernel<<<blocks_for(rows, cols, kThreads), kThreads, 0, stream>>>(
+      cells, code, a, b, done, state[0], list[0], counts, rows, cols, max_steps);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  for (int k = 0; k < r; ++k) {
+    jump_round_kernel<<<blocks, kThreads, 0, stream>>>(
+        code, a, b, done, state[k % 2], state[(k + 1) % 2], list[k % 2], counts + k,
+        list[(k + 1) % 2], counts + k + 1, k, kJumpB << k, max_steps);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -408,40 +519,41 @@ extern "C" int launch_downslope_tracked(const float* dem, const void* fdr, int f
 // Phase 1's steps (B), for the wrapper and the tests.
 extern "C" int jump_walk_bound() { return kJumpB; }
 
-// The whole jump walk on the stream, no host read: counts zeroed, phase 1,
-// then R rounds, round k reading (state, list) k % 2 and writing the other
-// pair.  Writes R to *rounds (host memory).  The in-core flow walk (K4) and
-// the local phase of the tiled and sharded paths (K5/K8) both call it, each
-// counted by its own wrapper.
-//
-// From the wrapper: counts, n_counts ints (counts[k] is the length of round
-// k's list; R + 1 of them are used); scratch, 7n ints: state_x[2n],
-// state_y[2n] (int2 each), done[n], list_x[n], list_y[n].
+// The jump walk over walk operands (fdr_eff, code0): code, a and b out.
+// The local phase of the tiled and sharded paths (K5/K8) and the fold
+// walk (flow_fold.cu) call it.  counts and scratch as jump_walk takes them.
 extern "C" int launch_jump_walk(const int* fdr_eff, const int* code0, int* code, int* a,
                                 int* b, int* counts, int n_counts, int* scratch, int rows,
                                 int cols, int max_steps, int* rounds, void* stream_ptr) {
+  return jump_walk(OperandCells{fdr_eff, code0}, code, a, b, counts, n_counts, scratch, rows,
+                   cols, max_steps, rounds, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The in-core flow walk (K4), from the rasters to the outputs, no host
+// read: the jump walk over fdr (int32 where fdr_is_int32 != 0, else
+// uint8) and river (one byte a cell, 1 = river), then flow_finish_kernel
+// writes fdist (float32) and indices (int32).  Writes R to *rounds (host
+// memory).  counts as jump_walk takes it; scratch, 10n ints: the jump
+// walk's 7n (its int2 states first, 8-byte aligned), then code, a and b.
+extern "C" int launch_flow_walk(const void* fdr, int fdr_is_int32, const unsigned char* river,
+                                float* fdist, int* indices, int* counts, int n_counts,
+                                int* scratch, int rows, int cols, int max_steps, float c_card,
+                                float c_diag, int* rounds, void* stream_ptr) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int r = jump_rounds(max_steps);
-  *rounds = r;
-  if (r + 1 > n_counts) return static_cast<int>(cudaErrorInvalidValue);
   const long long n = static_cast<long long>(rows) * cols;
-  if (n == 0) return 0;
-  int2* state[2] = {reinterpret_cast<int2*>(scratch), reinterpret_cast<int2*>(scratch + 2 * n)};
-  int* done = scratch + 4 * n;
-  int* list[2] = {done + n, done + 2 * n};
-  int blocks = 0;
-  int err = round_blocks(blocks);
-  if (err != 0) return err;
-  cudaError_t e = cudaMemsetAsync(counts, 0, (r + 1) * sizeof(int), stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  jump_start_kernel<<<blocks_for(rows, cols, kThreads), kThreads, 0, stream>>>(
-      fdr_eff, code0, code, a, b, done, state[0], list[0], counts, rows, cols, max_steps);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  for (int k = 0; k < r; ++k) {
-    jump_round_kernel<<<blocks, kThreads, 0, stream>>>(
-        code, a, b, done, state[k % 2], state[(k + 1) % 2], list[k % 2], counts + k,
-        list[(k + 1) % 2], counts + k + 1, k, kJumpB << k, max_steps);
-    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  }
-  return 0;
+  int* walk_scratch = scratch;
+  int* code = scratch + 7 * n;
+  int* a = code + n;
+  int* b = a + n;
+  const int err =
+      fdr_is_int32
+          ? jump_walk(RawCells<int>{static_cast<const int*>(fdr), river}, code, a, b, counts,
+                      n_counts, walk_scratch, rows, cols, max_steps, rounds, stream)
+          : jump_walk(RawCells<unsigned char>{static_cast<const unsigned char*>(fdr), river},
+                      code, a, b, counts, n_counts, walk_scratch, rows, cols, max_steps, rounds,
+                      stream);
+  if (err != 0 || n == 0) return err;
+  flow_finish_kernel<<<blocks_for(rows, cols, kThreads), kThreads, 0, stream>>>(
+      code, a, b, fdist, indices, rows, cols, max_steps, c_card, c_diag);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -60,6 +60,12 @@ SIGNATURES = {
     "launch_jump_walk": [
         _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _I, ctypes.POINTER(_I), _VP,
     ],
+    # the in-core flow walk: fdr, fdr is int32 (else uint8), river (one
+    # byte), fdist, indices, counts, n_counts, scratch (10n ints), rows,
+    # cols, max_steps, c_card, c_diag, rounds (int*, host), stream
+    "launch_flow_walk": [
+        _VP, _I, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _I, _F, _F, ctypes.POINTER(_I), _VP,
+    ],
     "jump_walk_bound": [],
     # the anchored fold: fdr_eff, code0, code, dist, a, b, jump_counts,
     # n_jump_counts, scratch, bands, n_bands, rows, cols, c_card, c_diag,

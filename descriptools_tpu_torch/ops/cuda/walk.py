@@ -16,35 +16,44 @@ Wrappers of ``csrc/walk.cu``:
   kernel on a tile's halo window, launched over the tile alone, with the
   flag; its plain version is ``ops.downslope.downslope_window``
   (``trunc_cells``, the tracked ``_downslope_jacobi``, then the interior).
-- :func:`flow_walk` replaces ``walk_vmem.py::_walk2_kernel``; its plain
-  version is ``ops.flow.doubling_walk``.  The step counts are two separate
+- :func:`flow_cuda` replaces ``walk_vmem.py::_walk2_kernel`` with the
+  flow stage around it: one C entry, ``launch_flow_walk``, from fdr and
+  the river mask as given to fdist and indices (phase 1 forms each cell's
+  absorbing role itself, and one kernel after the rounds forms the
+  outputs); its plain version is ``ops.flow.walk_inputs``,
+  ``doubling_walk`` and ``flow_from_state``.  Its launches, R and pending
+  cells are counted on ``flow_walk``.  The step counts are two separate
   int32 rasters, so no path can overflow them and the JAX packed-count
   guard with its ``_walk3_kernel`` fallback has no counterpart here.
 - :func:`absorbing_walk` replaces the generic absorbing walks
   ``walk_vmem.py::_walk3_kernel`` and ``walk.py::_walk3_kernel`` (the
-  local phase of ``parallel.boundary``); its plain version is
+  local phase of ``parallel.boundary``): the jump walk over walk operands
+  that the caller built (``launch_jump_walk``); its plain version is
   ``ops.flow.doubling_walk`` on the same operands.
-  The flow and absorbing walks are one jump walk: a serial walk of at most
-  B (:func:`jump_bound`) steps per thread, then pointer-jumping rounds over
-  the cells still walking, queued on the stream with no host read
-  (``csrc/walk.cu`` says how).
+  Both are one jump walk: a serial walk of at most B (:func:`jump_bound`)
+  steps per thread, then pointer-jumping rounds over the cells still
+  walking, queued on the stream with no host read (``csrc/walk.cu`` says
+  how).
 - :func:`flow_walk_blocked` (``csrc/flow_fold.cu``) replaces
   ``walk.py::_flow_kernel``, the JAX blocked flow tier; its plain version
   is ``ops.flow.fold_walk``.  It forms fdist as the right fold of the step
-  lengths, as that tier does, where :func:`flow_walk` gives counts: an
+  lengths, as that tier does, where :func:`flow_cuda` sums counts: an
   anchored fold after the jump walk, each cell folding at most W steps
   onto an anchor that an earlier launch finished, with one host read per
   call.
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
-the plain version.  There is no other fallback.  The flow walks' operands
-are built and their results finished in torch ops shared with the plain
-engines (``flow.walk_inputs`` before, ``flow_from_state`` and
+the plain version.  There is no other fallback.  :func:`flow_cuda` forms
+its operands and outputs on the card, by the rule of ``flow.flow_states``
+and the expression of ``flow_from_state``; every other flow walk's
+operands are built and its results finished in torch ops shared with the
+plain engines (``flow.walk_inputs`` before, ``flow_from_state`` and
 ``flow_from_fold`` after), so every engine's output is bitwise the same
 function of the walk state.
 """
 
 import ctypes
+import types
 
 import numpy as np
 import torch
@@ -166,10 +175,30 @@ def _jump_buffers(fdr_eff, code0):
     return code, a, b, counts, scratch
 
 
-def _jump_walk(counted, fdr_eff, code0, max_steps):
-    """The jump walk: (code, a, b) int32.  Sets ``counted.rounds`` (R) and
-    ``counted.pending`` (a device tensor: ``pending[k]`` cells entered
-    round k), and adds R to the open span's counter ``rounds``."""
+def _count_jump(counted, rounds, counts):
+    """Count a jump walk's launch on ``counted``, set ``counted.rounds``
+    (R) and ``counted.pending`` (a device tensor: ``pending[k]`` cells
+    entered round k), and add R to the open span's counter ``rounds``."""
+    counted.launches += 1
+    counted.rounds = rounds
+    counted.pending = counts[: rounds + 1]
+    timing.count("rounds", rounds)
+
+
+# K4's counters: the launches of ``launch_flow_walk`` by :func:`flow_cuda`,
+# and its last R (``rounds``) and ``pending`` cells, as :func:`_count_jump`
+# sets them (read by ``ops.cuda.launch_counters`` and the benchmark).
+flow_walk = types.SimpleNamespace(launches=0, rounds=0, pending=None)
+
+
+def absorbing_walk(fdr_eff, code0, max_steps):
+    """(code, a, b) int32 of a block's local walk: ``code0`` holds the
+    absorber's local index at every absorbing cell, UNRES elsewhere; where
+    no absorber is reached within ``max_steps``, (UNRES, 0, 0).  Counted by
+    :func:`_count_jump`."""
+    _check_jump_max_steps(max_steps)
+    if not code0.is_cuda:
+        return _flow.doubling_walk(fdr_eff, code0, max_steps)
     shape = tuple(code0.shape)
     dev = code0.device
     code, a, b, counts, scratch = _jump_buffers(fdr_eff, code0)
@@ -180,35 +209,8 @@ def _jump_walk(counted, fdr_eff, code0, max_steps):
             a.data_ptr(), b.data_ptr(), counts.data_ptr(), counts.numel(), scratch.data_ptr(),
             shape[0], shape[1], int(max_steps), ctypes.byref(rounds), build.stream_handle(dev),
         )
-    counted.launches += 1
-    counted.rounds = rounds.value
-    counted.pending = counts[: rounds.value + 1]
-    timing.count("rounds", counted.rounds)
+    _count_jump(absorbing_walk, rounds.value, counts)
     return code, a, b
-
-
-def flow_walk(fdr_eff, code0, max_steps):
-    """(code, a, b) int32: absorber code and cardinal/diagonal step counts."""
-    _check_jump_max_steps(max_steps)
-    if not code0.is_cuda:
-        return _flow.doubling_walk(fdr_eff, code0, max_steps)
-    return _jump_walk(flow_walk, fdr_eff, code0, max_steps)
-
-
-flow_walk.launches = 0
-flow_walk.rounds = 0
-flow_walk.pending = None
-
-
-def absorbing_walk(fdr_eff, code0, max_steps):
-    """(code, a, b) int32 of a block's local walk: ``code0`` holds the
-    absorber's local index at every absorbing cell, UNRES elsewhere; where
-    no absorber is reached within ``max_steps``, (UNRES, 0, 0).  The same
-    jump walk as :func:`flow_walk`, under its own counter."""
-    _check_jump_max_steps(max_steps)
-    if not code0.is_cuda:
-        return _flow.doubling_walk(fdr_eff, code0, max_steps)
-    return _jump_walk(absorbing_walk, fdr_eff, code0, max_steps)
 
 
 absorbing_walk.launches = 0
@@ -223,11 +225,68 @@ def downslope_cuda(dem, fdr, px, elevation_difference, max_steps):
     return downslope_walk(dem_f, fdr, px, elevation_difference, max_steps)
 
 
+# river dtypes the flow entry reads as they are: one byte a cell, 1 a river.
+RIVER_DTYPES = (torch.int8, torch.uint8, torch.bool)
+_I32 = torch.iinfo(torch.int32)
+
+
+def flow_operands(fdr, river):
+    """(fdr, river) as ``launch_flow_walk`` reads them, on the rasters'
+    device: fdr uint8 and int32 as they are, any other integer dtype as
+    int32 with every value int32 cannot hold set to -1 (like it, non-zero
+    and outside the D8 set); river int8, uint8 and bool as they are (the
+    byte 1 is a river), any other dtype as uint8 ``river == 1``.  Every
+    cell keeps its role under ``flow.flow_states``."""
+    if fdr.dtype not in FDR_DTYPES:
+        if fdr.is_floating_point() or fdr.is_complex() or fdr.dtype == torch.bool:
+            raise ValueError(f"fdr: expected an integer dtype, got {fdr.dtype}")
+        info = torch.iinfo(fdr.dtype)
+        if info.min < _I32.min or info.max > _I32.max:
+            fdr = torch.where((fdr >= _I32.min) & (fdr <= _I32.max), fdr, -1)
+        fdr = fdr.to(torch.int32)
+    if river.dtype not in RIVER_DTYPES:
+        river = (river == 1).to(torch.uint8)
+    return fdr.contiguous(), river.contiguous()
+
+
 def flow_cuda(fdr, river, px, max_steps):
-    """(fdist, indices) through :func:`flow_walk`."""
-    fdr_eff, code0 = _flow.walk_inputs(fdr, river)
-    code, a, b = flow_walk(fdr_eff, code0, max_steps)
-    return _flow.flow_from_state(code, a, b, px, max_steps)
+    """(fdist f32, indices int32) of the in-core flow walk.
+
+    On the card one C entry, ``launch_flow_walk``, queued with no host
+    read: a memset, phase 1 reading fdr and river as :func:`flow_operands`
+    gives them, R rounds, and ``flow_finish_kernel``.  Counted as a launch
+    of ``flow_walk``, whose ``rounds`` and ``pending`` it sets; adds R to
+    the open span's counter ``rounds`` and 1 to ``fused``.  On the CPU the
+    plain engine, through ``walk_inputs`` and ``flow_from_state``.  Refuses
+    ``max_steps >= 2^30`` on any device."""
+    _check_jump_max_steps(max_steps)
+    if not fdr.is_cuda:
+        state = _flow.doubling_walk(*_flow.walk_inputs(fdr, river), max_steps)
+        return _flow.flow_from_state(*state, px, max_steps)
+    rows, cols = fdr.shape
+    n = rows * cols
+    if n >= _flow.I32_IDX_LIMIT:
+        raise ValueError(f"{n} cells overflow flat int32 indices")
+    fdr, river = flow_operands(fdr, river)
+    build.check_cuda_tensor(river, "river", river.dtype, (rows, cols))
+    dev = fdr.device
+    fdist = torch.empty((rows, cols), dtype=torch.float32, device=dev)
+    indices = torch.empty((rows, cols), dtype=torch.int32, device=dev)
+    counts = torch.empty(_JUMP_COUNTS, dtype=torch.int32, device=dev)  # zeroed by the launcher
+    # The jump walk's 28 B a cell, then code, a and b: 40 B a cell.
+    scratch = torch.empty(10 * n, dtype=torch.int32, device=dev)
+    c_card, c_diag = _flow.step_consts(px)
+    rounds = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        build.launch(
+            "launch_flow_walk", fdr.data_ptr(), int(fdr.dtype == torch.int32), river.data_ptr(),
+            fdist.data_ptr(), indices.data_ptr(), counts.data_ptr(), counts.numel(),
+            scratch.data_ptr(), rows, cols, int(max_steps), c_card, c_diag, ctypes.byref(rounds),
+            build.stream_handle(dev),
+        )
+    _count_jump(flow_walk, rounds.value, counts)
+    timing.count("fused")
+    return fdist, indices
 
 
 def fold_width():
@@ -249,7 +308,7 @@ def flow_walk_blocked(fdr_eff, code0, c_card, c_diag, max_steps):
     last call, ``flow_walk_blocked.rounds`` (K), ``.pending`` (the cells
     folded in rounds), ``.jump_rounds`` (the jump walk's R) and
     ``.jump_pending`` (a device tensor: the cells entering each of the
-    jump walk's rounds, as ``flow_walk.pending``).  Refuses
+    jump walk's rounds, as ``absorbing_walk.pending``).  Refuses
     ``max_steps >= 2^30`` on any device, as the jump walk does."""
     _check_jump_max_steps(max_steps)
     if not code0.is_cuda:

@@ -11,11 +11,18 @@ answer) or a NaN absorber (dead end, border exit, fdr 0), within
 - a walk engine returns ``(code, a, b)``: the absorber's code and the
   cardinal and diagonal step counts, or ``(UNRES, 0, 0)`` where no absorber
   is reached within ``max_steps`` (cycles, over-long paths).
-  :func:`doubling_walk` is the plain engine; ``ops.cuda.walk.flow_walk``
+  :func:`doubling_walk` is the plain engine; ``ops.cuda.walk.absorbing_walk``
   runs the jump walk (a bounded serial walk per CUDA thread, then pointer
   jumping over the cells still walking);
 - :func:`flow_from_state` forms fdist and indices post-pass, from the
   integer counts, as ``walk_vmem.flow_pallas_vmem`` does.
+
+``engine="cuda"`` (``ops.cuda.walk.flow_cuda``) does not run through
+:func:`walk_inputs` and :func:`flow_from_state` on the card: its kernels
+form each cell's role by :func:`flow_states`' truth table and the outputs
+by :func:`flow_from_state`'s expression themselves, in one C entry.  Every
+other engine, the tiled and sharded local walks and ``flow_cuda`` on the
+CPU still build the operands and finish the state here.
 
 The fold engines (``engine="torch_blocked"`` / ``"cuda_blocked"``) are the
 counterpart of the JAX blocked tier ``walk.py::flow_pallas``: frontier
@@ -43,7 +50,7 @@ from descriptools_tpu_torch.d8 import pull8, successor
 from descriptools_tpu_torch.utils import timing
 
 UNRES = -(1 << 31)  # unresolved-walk code (INT32_MIN)
-_I32_IDX_LIMIT = 1 << 31
+I32_IDX_LIMIT = 1 << 31
 
 
 def flow_states(fdr, river, rows, cols):
@@ -65,7 +72,7 @@ def walk_inputs(fdr, river):
     """(fdr_eff int32, code0 int32) — the operands of every flow walk engine."""
     rows, cols = fdr.shape
     n = rows * cols
-    if n >= _I32_IDX_LIMIT:
+    if n >= I32_IDX_LIMIT:
         raise ValueError(f"{n} cells overflow flat int32 indices")
     _, _, absorbing, _, is_river = flow_states(fdr, river, rows, cols)
     absorbing = absorbing.reshape(rows, cols)
@@ -346,7 +353,7 @@ def flow_distance_index(fdr, river, px, max_steps=FLOW_MAX_STEPS, method=None, e
             raise ValueError(f"method={method!r} has no kernel; run it with engine='torch', not {engine!r}")
         rows, cols = fdr.shape
         n = rows * cols
-        if n >= _I32_IDX_LIMIT:
+        if n >= I32_IDX_LIMIT:
             raise ValueError(f"{n} cells overflow flat int32 indices")
         if method == "doubling":
             return _flow_doubling(fdr, river, px, max_steps)

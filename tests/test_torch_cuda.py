@@ -8,6 +8,7 @@ repository's conftest:
 """
 
 import importlib
+import os
 
 import numpy as np
 import pytest
@@ -80,9 +81,13 @@ def test_walk_kernels_match_plain(dev, basin):
     got = walk.downslope_walk(dem_f, fdr, 12.5, 5.0, 5000)
     assert walk.downslope_walk.launches == before + 1
     assert torch.equal(got, down._downslope_jacobi(dem_f, fdr, 12.5, 5.0, 5000))
-    ops = flow.walk_inputs(fdr, torch.as_tensor(basin["river"], device=dev))
-    for g, w in zip(walk.flow_walk(*ops, 20000), flow.doubling_walk(*ops, 20000)):
+    river = torch.as_tensor(basin["river"], device=dev)
+    ops = flow.walk_inputs(fdr, river)
+    want = flow.doubling_walk(*ops, 20000)
+    for g, w in zip(walk.absorbing_walk(*ops, 20000), want):
         assert torch.equal(g, w)
+    _assert_flow_bitwise(walk.flow_cuda(fdr, river, 12.5, 20000), flow.flow_from_state(*want, 12.5, 20000),
+                         "basin")
 
 
 def test_suite_runs_every_kernel_and_matches_plain(dev, basin):
@@ -149,9 +154,10 @@ def test_kernel_wrappers_refuse_wrong_dtype(dev):
     with pytest.raises(ValueError, match="integer dtype"):
         walk.downslope_walk(z, z, 12.5, 5.0, 10)
     i = torch.zeros((4, 5), dtype=torch.int32, device=dev)
-    for fn in (walk.flow_walk, walk.absorbing_walk):
-        with pytest.raises(ValueError, match="2\\^30"):
-            fn(i, i, 1 << 30)
+    with pytest.raises(ValueError, match="2\\^30"):
+        walk.absorbing_walk(i, i, 1 << 30)
+    with pytest.raises(ValueError, match="2\\^30"):
+        walk.flow_cuda(i, u8, 12.5, 1 << 30)
 
 
 def _cycles(rows=96, cols=130, seed=3):
@@ -187,24 +193,107 @@ def _b_boundary(delta, k=4):
 
 
 def test_jump_walk_kernel_matches_plain_without_a_sync(dev):
-    """The jump walk, both entry points, bitwise the plain doubling engine on
-    cycles, a serpentine over the cap and the B-boundary caps, with every
-    host synchronisation an error."""
+    """The jump walk, both entry points (over walk operands, and the
+    in-core flow entry from the rasters to fdist and indices), bitwise the
+    plain doubling engine on cycles, a serpentine over the cap and the
+    B-boundary caps, with every host synchronisation an error."""
     cases = [(*_cycles(), 300), (*_serpentine(), 20000), (*_serpentine(), 60000),
              *(_b_boundary(d) for d in (-1, 0, 1))]
     for fdr, river, max_steps in cases:
-        ops = flow.walk_inputs(torch.as_tensor(fdr, device=dev), torch.as_tensor(river, device=dev))
+        fdr_t, river_t = torch.as_tensor(fdr, device=dev), torch.as_tensor(river, device=dev)
+        ops = flow.walk_inputs(fdr_t, river_t)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            got = [fn(*ops, max_steps) for fn in (walk.flow_walk, walk.absorbing_walk)]
+            got = walk.absorbing_walk(*ops, max_steps)
+            fused = walk.flow_cuda(fdr_t, river_t, 12.5, max_steps)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         want = flow.doubling_walk(*ops, max_steps)
-        for state in got:
-            for g, w in zip(state, want):
-                assert torch.equal(g, w), (fdr.shape, max_steps)
-    assert walk.flow_walk.rounds == 5  # the least R with B << R >= the last cap, B * 2^4 + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (fdr.shape, max_steps)
+        _assert_flow_bitwise(fused, flow.flow_from_state(*want, 12.5, max_steps), (fdr.shape, max_steps))
+    # the least R with B << R >= the last cap, B * 2^4 + 1
+    assert walk.flow_walk.rounds == walk.absorbing_walk.rounds == 5
+
+
+def _assert_flow_bitwise(got, want, what):
+    """(fdist, indices) equal bit for bit: fdist compared as int32 bits."""
+    for g, w, name in zip(got, want, ("fdist", "indices")):
+        assert g.dtype == w.dtype and g.shape == w.shape, (name, what)
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), (name, what)
+
+
+def _adversarial_flow(fdr_dtype, rows=67, cols=131, seed=29):
+    """fdr and river of every role and corner of the truth table: fdr 0, 3,
+    255 and every D8 code (and, wider than uint8, 257 and -1); river 0, 1
+    and 2; river cells with fdr 0, with an invalid code and pointing off
+    the grid; non-river cells pointing off the grid; two-cell cycles."""
+    rng = np.random.default_rng(seed)
+    wide = fdr_dtype != torch.uint8
+    fdr = rng.choice(np.array([0, 3, 255, 1, 2, 4, 8, 16, 32, 64, 128] + [257, -1] * wide), size=(rows, cols))
+    d8 = np.array([1, 2, 4, 8, 16, 32, 64, 128])
+    mostly = rng.random((rows, cols)) < 0.8  # long enough walks: mostly D8 codes
+    fdr[mostly] = d8[rng.integers(0, 8, size=int(mostly.sum()))]
+    river = rng.choice(np.array([0, 1, 2], np.int8), size=(rows, cols), p=[0.9, 0.07, 0.03])
+    fdr[0, :], river[0, :] = 64, 1           # river cells pointing off the top edge
+    fdr[-1, :] = 4                           # non-river cells pointing off the bottom edge
+    river[-1, ::2] = 0
+    fdr[1:, 0], river[1:, 0] = 16, 0         # and off the left edge
+    fdr[5, 10:14], river[5, 10:14] = (0, 3, 255, 0), 1  # rivers with fdr 0 or an invalid code
+    fdr[9, 20], fdr[9, 21], river[9, 20:22] = 1, 16, 0  # a two-cell cycle
+    fdr[12, 30], fdr[13, 30], river[12:14, 30] = 4, 64, 2
+    if wide:
+        fdr[20, 40:44], river[20, 40:44] = (257, -1, 257, -1), (1, 1, 0, 2)
+    return torch.as_tensor(fdr).to(fdr_dtype), torch.as_tensor(river)
+
+
+def _long_drainage(dev):
+    """fdr and river of the long-drainage set at 2178 x 1534, made on the
+    card from ``tests/data/long_drainage_reference.npz``'s parameters
+    (walks of up to 1409 steps)."""
+    from descriptools_tpu_torch.utils import parity
+
+    ref = parity.load(os.path.join(os.path.dirname(__file__), "data", "long_drainage_reference.npz"))
+    _, (_, fdr, _, river) = parity.long_drainage_inputs(ref, 2178, 1534, dev)
+    return fdr, river
+
+
+@pytest.mark.parametrize("case", ["basin", "long_drainage", "ragged", "adversarial_uint8",
+                                  "adversarial_int32", "adversarial_int16", "serpentine"])
+def test_flow_entry_matches_the_walk_operand_path(dev, basin, case):
+    """``flow_cuda``, one C entry from fdr and river to fdist and indices,
+    bit for bit ``walk_inputs`` -> ``doubling_walk`` -> ``flow_from_state``
+    (and the jump walk over the same operands, ``absorbing_walk``) at the
+    caps 1, B, B + 1 and 20000, counted as one flow walk launch."""
+    bound = walk.jump_bound()
+    if case == "basin":
+        grids = [(torch.as_tensor(basin["fdr"]), torch.as_tensor(basin["river"]))]
+    elif case == "long_drainage":
+        grids = [_long_drainage(dev)]
+    elif case == "ragged":
+        rng = np.random.default_rng(5)
+        grids = []
+        for rows, cols in ((1, 1), (1, 300), (300, 1), (17, 33), (255, 257), (3, 1000)):
+            fdr = np.array([1, 2, 4, 8, 16, 32, 64, 128, 0], np.uint8)[rng.integers(0, 9, size=(rows, cols))]
+            river = (rng.random((rows, cols)) < 0.1).astype(np.int8)
+            grids.append((torch.as_tensor(fdr), torch.as_tensor(river)))
+    elif case == "serpentine":
+        grids = [tuple(map(torch.as_tensor, _serpentine(40, 60)))]
+    else:
+        grids = [_adversarial_flow(getattr(torch, case.split("_")[1]))]
+    for fdr, river in grids:
+        fdr, river = fdr.to(dev), river.to(dev)
+        ops = flow.walk_inputs(fdr, river)
+        for max_steps in (1, bound, bound + 1, 20000):
+            before = walk.flow_walk.launches
+            got = walk.flow_cuda(fdr, river, 12.5, max_steps)
+            assert walk.flow_walk.launches == before + 1
+            state = flow.doubling_walk(*ops, max_steps)
+            what = (case, tuple(fdr.shape), max_steps)
+            _assert_flow_bitwise(got, flow.flow_from_state(*state, 12.5, max_steps), what)
+            _assert_flow_bitwise(got, flow.flow_from_state(*walk.absorbing_walk(*ops, max_steps), 12.5, max_steps),
+                                 what)
 
 
 def test_stencil_padded_kernel_matches_plain(dev, basin):
@@ -285,7 +374,7 @@ def test_flow_walk_blocked_kernel_matches_fold_walk(dev, basin):
         want = flow.fold_walk(*ops, *consts, max_steps)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-        state = walk.flow_walk(*ops, max_steps)
+        state = walk.absorbing_walk(*ops, max_steps)
         idx = flow.flow_from_state(*state, 12.5, max_steps)[1]
         assert torch.equal(flow.flow_from_fold(*got)[1], idx)
         # P and K follow from the depths.

@@ -346,6 +346,78 @@ def test_jump_walk_rules_matter(fault, fixture):
     assert any((g != w).any() for g, w in zip(got, want))
 
 
+def d8_decode(f):
+    """csrc/d8.cuh::d8_decode on a 32-bit int: (valid, dy, dx, diagonal)."""
+    u = f & 0xFFFFFFFF
+    k = ((u & -u).bit_length() - 1) & 7  # __ffs(code) - 1, as unsigned, & 7
+    dy = ((0x01A9 >> (2 * k)) & 3) - 1
+    dx = ((0x901A >> (2 * k)) & 3) - 1
+    return ((u - 1) & 0xFFFFFFFF) < 128 and (u & (u - 1)) == 0, dy, dx, bool(k & 1)
+
+
+def raw_cell_role(f, river, r, c, rows, cols):
+    """csrc/walk.cu ``RawCells::visit``, the role phase 1 of the in-core
+    flow walk gives cell (r, c) of a rows x cols grid from its fdr ``f`` and
+    its river byte: (UNRES, True) where it steps, else (its absorber code,
+    False): its flat index for a river, -index-1 for a NaN absorber."""
+    idx = r * cols + c
+    valid, dy, dx, _ = d8_decode(f)
+    inside = valid and 0 <= r + dy < rows and 0 <= c + dx < cols
+    if f != 0 and river != 1 and inside:
+        return tflow.UNRES, True
+    return (idx if f != 0 and river == 1 else -idx - 1), False
+
+
+def _roles_of_walk_inputs(fdr, river):
+    """[(code0, fdr_eff)] of every cell, row-major, from ``walk_inputs``."""
+    fdr_eff, code0 = tflow.walk_inputs(fdr, river)
+    return list(zip(code0.reshape(-1).tolist(), fdr_eff.reshape(-1).tolist()))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32], ids=str)
+def test_raw_cell_role_is_the_truth_table_of_walk_inputs(dtype):
+    """The kernel's per-cell rule against ``walk_inputs``' code0 and
+    fdr_eff for every fdr value the dtype holds from -1 to 257, river 0, 1
+    and 2, at the corners, edges and interior of a 3 x 4 grid."""
+    rows, cols = 3, 4
+    values = range(256) if dtype == torch.uint8 else range(-1, 258)
+    for f in values:
+        for rv in (0, 1, 2):
+            got = _roles_of_walk_inputs(torch.full((rows, cols), f, dtype=dtype),
+                                        torch.full((rows, cols), rv, dtype=torch.int8))
+            for idx, (code0, fdr_eff) in enumerate(got):
+                code, moves = raw_cell_role(f, rv, idx // cols, idx % cols, rows, cols)
+                assert (code0, fdr_eff) == (code, f if moves else 0), (f, rv, idx)
+
+
+FDR_VALUES = (-2**40, -2**31 - 1, -2**31, -129, -1, 0, 1, 2, 3, 16, 64, 128, 255, 256, 257,
+              2**31 - 1, 2**31, 2**32 + 1, 2**32 + 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int64, torch.uint8, torch.int32],
+                         ids=str)
+def test_flow_operands_keep_every_cells_role(dtype):
+    """``flow_operands`` gives the kernel fdr and a river byte under which
+    every cell has the role ``walk_inputs`` gives it from the rasters as
+    they were: values int32 cannot hold stay invalid, a river of 257 stays
+    no river."""
+    info = torch.iinfo(dtype)
+    values = [v for v in FDR_VALUES if info.min <= v <= info.max]
+    rows, cols = 3, len(values)
+    fdr = torch.tensor([values] * rows, dtype=dtype)
+    river = torch.tensor([[[0, 1, 2, 257][(r + c) % 4] for c in range(cols)] for r in range(rows)])
+    f_op, r_op = twalk.flow_operands(fdr, river)
+    assert f_op.dtype in twalk.FDR_DTYPES and r_op.dtype in twalk.RIVER_DTYPES
+    assert f_op.is_contiguous() and r_op.is_contiguous()
+    want = _roles_of_walk_inputs(fdr, river)
+    f_l, r_l = f_op.reshape(-1).tolist(), r_op.reshape(-1).tolist()
+    for idx, (code0, fdr_eff) in enumerate(want):
+        code, moves = raw_cell_role(f_l[idx], r_l[idx], idx // cols, idx % cols, rows, cols)
+        assert code == code0 and (fdr_eff != 0) == moves, (values[idx % cols], idx)
+    with pytest.raises(ValueError, match="integer dtype"):
+        twalk.flow_operands(fdr.to(torch.float32), river)
+
+
 @pytest.mark.parametrize("dem_dtype", [np.int32, np.int16])
 def test_hand_and_river_fac_bitwise(dem_dtype):
     dem, fdr, river, fac = synthetic_basin(70, 110, seed=13)
@@ -380,15 +452,23 @@ def test_gfi_and_ln_hl_h_vs_jax(px, n, b):
     np.testing.assert_allclose(got, np.asarray(j_ln_hl_h(hand, fac, n, b, px)), rtol=2e-5)
 
 
-@pytest.mark.parametrize("fn", [twalk.flow_walk, twalk.absorbing_walk], ids=lambda f: f.__name__)
-def test_jump_walk_wrappers_refuse_max_steps_past_2pow30_on_cpu(fn):
+@pytest.mark.parametrize("entry", ["flow_cuda", "absorbing_walk"])
+def test_jump_walk_wrappers_refuse_max_steps_past_2pow30_on_cpu(entry):
     """The wrappers refuse a cap whose sums could overflow on any device, as
-    they do on the card."""
-    fdr_eff, code0 = _walk_operands(*_north_rivers())
+    they do on the card, and run the plain engine under it."""
+    fdr, river = _north_rivers()
+    fdr_eff, code0 = _walk_operands(fdr, river)
+    state = tflow.doubling_walk(fdr_eff, code0, (1 << 30) - 1)
+    if entry == "flow_cuda":
+        raster = torch.from_numpy(fdr), torch.from_numpy(river)
+        run = lambda cap: twalk.flow_cuda(*raster, PX, cap)
+        want = tflow.flow_from_state(*state, PX, (1 << 30) - 1)
+    else:
+        run = lambda cap: twalk.absorbing_walk(fdr_eff, code0, cap)
+        want = state
     with pytest.raises(ValueError, match="2\\^30"):
-        fn(fdr_eff, code0, 1 << 30)
-    assert all(g.equal(w) for g, w in zip(fn(fdr_eff, code0, (1 << 30) - 1),
-                                          tflow.doubling_walk(fdr_eff, code0, (1 << 30) - 1)))
+        run(1 << 30)
+    assert all(g.equal(w) for g, w in zip(run((1 << 30) - 1), want))
 
 
 def test_flow_wrapper_on_cpu_runs_the_plain_engine():

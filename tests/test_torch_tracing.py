@@ -4,6 +4,7 @@ one-device ``sharded_classify_flood``: how they nest, what they count, that
 they change no output, and that nothing is recorded while recording is off."""
 
 import contextlib
+import json
 
 import numpy as np
 import pytest
@@ -130,11 +131,48 @@ def test_accumulation_counters(basin, max_path):
 
 
 def test_flow_rounds_counted(calls):
+    """On the CPU the flow stage runs the plain engine: its rounds are
+    counted, and ``fused`` is absent."""
     with timing.recording() as rec:
         calls["suite"]()
     by = {s.name: s.counters for s in rec.spans}
     assert by["suite.flow"] == {"rounds": _doubling_rounds(CFG.flow_max_steps)}
+    assert "fused" not in by["suite.flow"]
     assert all(c == {} for name, c in by.items() if name != "suite.flow")
+
+
+@pytest.mark.cuda
+def test_flow_stage_is_one_entry_on_the_card(basin, tmp_path):
+    """On the card ``suite.flow`` counts ``fused`` 1 and the jump walk's R,
+    and launches at most 2 + R + 1 device activities (a memset, phase 1,
+    R rounds, the finish): no torch op runs in the stage."""
+    from torch.profiler import ProfilerActivity
+
+    from descriptools_tpu_torch.ops.cuda import walk
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    inputs = [t.to("cuda") for t in basin]
+    pipeline.descriptor_suite(*inputs, CFG)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with timing.recording() as rec:
+            pipeline.descriptor_suite(*inputs, CFG)
+        torch.cuda.synchronize()
+    rounds = walk.flow_walk.rounds
+    assert {s.name: s.counters for s in rec.spans}["suite.flow"] == {"rounds": rounds, "fused": 1}
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    stage = next(e for e in events if e.get("cat") == "user_annotation" and e["name"] == "dt.suite.flow")
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})
+                and stage["ts"] <= e["ts"] <= stage["ts"] + stage["dur"]}
+    device = [e["name"] for e in events if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")
+              and e.get("args", {}).get("correlation") in launched]
+    assert 0 < len(device) <= 2 + rounds + 1, device
+    assert sum("jump_start_kernel" in name for name in device) == 1, device
+    assert sum("flow_finish_kernel" in name for name in device) == 1, device
 
 
 @pytest.mark.parametrize("path", ["histogram", "counting"])
