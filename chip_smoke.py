@@ -5,6 +5,7 @@
     python3 chip_smoke.py --cards 4  # the staged scale script over NCCL, a rank a card, and weak scaling
     python3 chip_smoke.py --link-probes  # the host link's copy/kernel overlap probes alone
     python3 chip_smoke.py --long-drainage  # the long-drainage parity phase alone
+    python3 chip_smoke.py --float-dem  # the float-DEM phase alone
 
 Phases, each printing its own lines:
 
@@ -137,6 +138,19 @@ Phases, each printing its own lines:
    the suite through K2/K3/K4 (launch counters read) against
    ``engine="torch"``; the one-card classifier on a seeded flood map
    against the host ``tiled_classify_flood``, both timed;
+8b. a float DEM at the LiDAR cell's size (``phase_float_dem``): the
+   cell's own mix (``benchmark/traffic/float_dem_to_classmap.json``,
+   ``float_dem`` at 10000x10000, unrounded float32 metres) through
+   ``derive_terrain`` and the suite with the cell's settings; K3 on that
+   DEM bitwise ``_downslope_jacobi``, with the walks that stop at a
+   terminal of fractional elevation counted (the phase fails on none);
+   the one-card classifier on its float HAND, launch counters reset just
+   before (``cutoff_count`` 5 launches, no other kernel), identical to the
+   benchmark's float64 reference; each counting pass's cutoffs again
+   through ``cutoff_count`` and ``cutoff_count_plain`` on the same card
+   tensors, bitwise, each timed (CUDA events) with the kernel's device
+   time and its bound, 8 B a cell (hand f32, flood int32) at the card's
+   memory rate;
 9. the measuring entry points: ``bench_torch.py`` in a process of its
    own, as a user runs it, its JSON line read (every key of ``bench.py``'s
    line, engine "cuda", K2, K3 and K4 launched once a suite it ran,
@@ -145,7 +159,8 @@ Phases, each printing its own lines:
    4096x4096) and 4 (the calibration at 2178x1534, its threshold the same
    as ``calibration(backend="torch")`` of phase 2's HAND on the CPU).
 
-``--long-drainage`` runs phases 0 and 2c alone.
+``--long-drainage`` runs phases 0 and 2c alone; ``--float-dem`` phases 0
+and 8b.
 
 ``--link-probes`` runs only the host link's probes, on phase 4's grid:
 ``tiled_suite`` at 8192x8192 with and without ``upload_in_prefetch`` under
@@ -209,6 +224,12 @@ KERNELS = {
     "flow_walk_blocked": dict(
         source="descriptools_tpu_torch/csrc/flow_fold.cu",
         replaces="descriptools_tpu/ops/pallas/walk.py:375",
+    ),
+    # The float-HAND calibration's counting pass: the JAX package has no
+    # kernel for it (it calibrates float HAND on the host).
+    "cutoff_count": dict(
+        source="descriptools_tpu_torch/csrc/classify.cu",
+        replaces=None,
     ),
 }
 IN_CORE = ("stencil", "downslope_walk", "flow_walk")
@@ -2546,6 +2567,121 @@ def phase_config3(dev, card):
     torch.cuda.empty_cache()
 
 
+FLOAT_MIX = os.path.join(ROOT, "benchmark", "traffic", "float_dem_to_classmap.json")
+FLOAT_CONFIG = os.path.join(ROOT, "benchmark", "configs", "lidar_3dep_1m.json")
+FLOAT_SEED = 2147507200  # the first of the LiDAR cell's reading seeds
+
+
+def phase_float_dem(dev, card, errs):
+    """A float DEM at the LiDAR cell's size: the cell's mix and settings,
+    K3 bitwise its plain engine with fractional terminal stops, the float
+    calibration's launches and result, and its counting kernel against
+    its plain version on each stage's cutoffs.  Returns ({"cutoff_count":
+    launches}, {"cutoff_count": timing}), the timing of the stage with the
+    most cutoffs."""
+    from benchmark import inputs as bench_inputs
+    from benchmark.reference import classify as ref_classify
+    from descriptools_tpu_torch import pipeline
+    from descriptools_tpu_torch.ops import terrain
+    from descriptools_tpu_torch.ops.cuda import classify as cc
+    from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
+    from descriptools_tpu_torch.ops.downslope import _downslope_jacobi, jacobi_walk, walk_inputs
+    from descriptools_tpu_torch.parallel import classify as pc
+
+    t_phase = time.perf_counter()
+    with open(FLOAT_MIX) as f:
+        mix = json.load(f)
+    with open(FLOAT_CONFIG) as f:
+        config = json.load(f)
+    rows, cols = config["rows"], config["cols"]
+    cfg = pipeline.PipelineConfig(**config["pipeline"])
+    torch.cuda.empty_cache()
+    x = bench_inputs.make_input(mix, rows, cols, FLOAT_SEED, dev)
+    dem, flood = x["dem"], x["flood"]
+    valid = dem != -100
+    frac = int((valid & (dem != torch.round(dem))).sum())
+    fdr, fac = terrain.derive_terrain(dem)
+    river = (fac > mix["river"]["fac_above"]).to(torch.int8)
+    out = pipeline.descriptor_suite(dem, fdr, fac, river, cfg)
+    hand = out["hand"]
+    downslope = out["downslope"]
+    del out
+    print(f"float DEM {rows}x{cols} (the LiDAR mix, seed {FLOAT_SEED}): {frac} of {int(valid.sum())} valid cells "
+          f"at a fractional elevation; river fac > {mix['river']['fac_above']} ({int(river.sum())} cells)  [{card}]")
+
+    # K3 (the suite's downslope) on the fractional DEM against the plain
+    # engine, and the walks that stop at a terminal of fractional elevation
+    # (where an offset encoding of terminals would round).
+    args = (dem, fdr, cfg.px, cfg.elevation_difference, cfg.downslope_max_steps)
+    check_bitwise("float DEM downslope: K3 vs _downslope_jacobi", downslope, _downslope_jacobi(*args))
+    fdr_eff, z, term0 = walk_inputs(dem, fdr, cfg.px)
+    pk, z_stop, at_terminal = jacobi_walk(fdr_eff, z, term0, cfg.elevation_difference,
+                                          cfg.downslope_max_steps, trunc0=term0)
+    stopped = at_terminal & (pk != 0) & valid
+    frac_stops = int((stopped & (z_stop != torch.round(z_stop))).sum())
+    if not frac_stops:
+        raise AssertionError("float DEM: no walk stops at a terminal of fractional elevation")
+    print(f"float DEM downslope: K3 bitwise _downslope_jacobi; {int(stopped.sum())} walks stop at a terminal, "
+          f"{frac_stops} of them at a fractional elevation")
+    del fdr_eff, z, term0, pk, z_stop, at_terminal, stopped, downslope, fdr, fac, river
+
+    # The float calibration: its launches with the counters reset just
+    # before, its result against the benchmark's float64 reference, and
+    # each stage's cutoffs recorded for the kernel's own check.
+    stages = []
+    real = pc._block_cut_counts
+
+    def recording(hand_blk, bench_blk, h00, cuts, under):
+        stages.append(np.array(cuts, dtype=np.float32))
+        return real(hand_blk, bench_blk, h00, cuts, under)
+
+    pc._block_cut_counts = recording
+    try:
+        reset_launch_counters()
+        got = pc.sharded_classify_flood(hand, flood)
+        torch.cuda.synchronize()
+        launches = launch_counters()
+    finally:
+        pc._block_cut_counts = real
+    if launches["cutoff_count"] != 5 or any(n for k, n in launches.items() if k != "cutoff_count"):
+        raise AssertionError(f"float calibration: launches {launches}, not 5 cutoff_count")
+    th, correctness, fit, class_map = ref_classify.classify_flood(hand, flood, torch.float64)
+    want = (float(th), float(correctness), float(fit))
+    if got[:3] != want or not torch.equal(got[3], class_map):
+        raise AssertionError(f"float calibration: {got[:3]} vs the reference's {want}")
+    del class_map
+    classify_ms = wall_ms(lambda: pc.sharded_classify_flood(hand, flood), 3)
+    print(f"float calibration sharded_classify_flood {rows}x{cols}: launches {launches}; threshold {got[0]} "
+          f"Fit {got[2]!r} Correctness {got[1]!r}, class map identical to the benchmark's float64 reference; "
+          f"cutoffs a pass {[len(c) for c in stages]}; {classify_ms:.3f} ms  [{card}]")
+
+    # The counting kernel against its plain version on the same card
+    # tensors, a stage at a time: bitwise, timed, its bound the bytes.
+    hand_s, flood_s = hand.to(torch.float32).contiguous(), flood.to(torch.int32).contiguous()
+    h00 = hand_s[0, 0]
+    cells = hand_s.numel()
+    bound = cells * (4 + 4) / HBM_BYTES_PER_MS
+    rows_out = []
+    for cuts in stages:
+        kernel = lambda c=cuts: cc.cutoff_count(hand_s, flood_s, h00, c)  # noqa: E731
+        plain = lambda c=cuts: cc.cutoff_count_plain(hand_s, flood_s, h00, c)  # noqa: E731
+        check_bitwise(f"cutoff_count {len(cuts)} cutoffs vs cutoff_count_plain", kernel(), plain())
+        # Many calls: a trace late in a session can miss its first records.
+        traced = [ms for name, ms in device_kernels_ms(kernel).items() if "cutoff_count_kernel" in name]
+        shown = f"{traced[0]:.4f}" if len(traced) == 1 else f"not traced ({len(traced)} kernels)"
+        rows_out.append(dict(cuts=len(cuts), ms=median_ms(kernel), plain_ms=median_ms(plain)))
+        print(f"time cutoff_count {len(cuts)} cutoffs: kernel {rows_out[-1]['ms']:.4f} ms (device {shown}), "
+              f"plain {rows_out[-1]['plain_ms']:.3f} ms, bound {bound:.4f} ms (8 B a cell)  [{card}]")
+    errs["cutoff_count"] = 0.0
+    widest = max(rows_out, key=lambda r: r["cuts"])
+    del hand, flood, hand_s, flood_s, got, dem, valid, x
+    torch.cuda.empty_cache()
+    print(f"float DEM phase: {time.perf_counter() - t_phase:.1f} s")
+    return ({"cutoff_count": launches["cutoff_count"]},
+            {"cutoff_count": dict(ms=widest["ms"], plain_ms=widest["plain_ms"], bound_ms=bound,
+                                  bound_by="bytes")})
+
+
 def bench_line(argv, engine, kernels, checked, card):
     """``bench_torch.py`` with ``argv`` as a user runs it, its line checked:
     every key of ``bench.py``'s line, ``engine``, each of ``kernels``
@@ -2666,6 +2802,9 @@ def main():
     phase_compat(dev, basin)
     phase_oracle(dev, basin)
     phase_config3(dev, card)
+    float_launches, float_times = phase_float_dem(dev, card, errs)
+    launches.update(float_launches)
+    times.update(float_times)
     phase_bench(card, hand_small, basin["flood"])
     # No single PyTorch call computes any of these functions: library_ms null.
     kernels = [
@@ -2692,6 +2831,19 @@ def main_long_drainage():
     print(card)
 
 
+def main_float_dem():
+    """``--float-dem``: the device phase and the float-DEM phase alone
+    (``phase_float_dem``), with the counting kernel's row."""
+    phase_device()
+    dev, card = torch.device("cuda", 0), card_line()
+    errs = {"cutoff_count": 0.0}
+    launches, times = phase_float_dem(dev, card, errs)
+    print(card)
+    print(json.dumps({"kernels": [dict(name="cutoff_count", route="cuda", **KERNELS["cutoff_count"],
+                                       launches=launches["cutoff_count"], max_abs_err=errs["cutoff_count"],
+                                       **times["cutoff_count"], library_ms=None)]}))
+
+
 def main_link_probes():
     """``--link-probes``: the host link's probes alone, on phase 4's grid
     (``upload_overlap``, ``copy_overlap``); no kernel is checked."""
@@ -2713,5 +2865,7 @@ if __name__ == "__main__":
         main_link_probes()
     elif sys.argv[1:] == ["--long-drainage"]:
         main_long_drainage()
+    elif sys.argv[1:] == ["--float-dem"]:
+        main_float_dem()
     else:
         main()

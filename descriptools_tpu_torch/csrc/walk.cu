@@ -17,9 +17,9 @@
 // (vector selects over VMEM-resident bands), because the TPU has no cheap
 // per-lane gather.  A Hopper thread can follow a pointer.  The downslope
 // kernel takes one start cell per thread and follows its D8 path to its
-// stop, the reference toolbox's own design: the first cell whose encoded
-// elevation Zt is at or below the start's z - ed (the Jacobi lookahead's
-// first hit, for any fdr, monotone or not).  Its stops depend on the
+// stop, the reference toolbox's own design: the first cell that is a
+// terminal or whose elevation is at or below the start's z - ed (the Jacobi
+// lookahead's first hit, for any fdr, monotone or not).  Its stops depend on the
 // start's own threshold, so a walk cannot reuse another's result.  One
 // kernel serves every grid size: there is no VMEM tier, so the TPU's
 // VMEM-resident and HBM-blocked kernels of one walk have one counterpart.
@@ -38,9 +38,10 @@
 //   - the terminal test formed on the fly (ops/downslope.py::
 //     _terminal_and_step): p is terminal where its code is not one of the
 //     8, its target lies outside the grid (tracked: the window), or z is
-//     -100 at p or at its target; zt0(p) = z(p) - 2^20 there (one f32
-//     subtraction: it rounds fractional elevations to 1/16, as every
-//     engine does), z(p) elsewhere;
+//     -100 at p or at its target; the walk stops there, and its result
+//     reads z(p) as it is (a flag apart from the elevation, so fractional
+//     elevations stay exact: the TPU kernels' terminal offset z - 2^20
+//     rounds them to 1/16 m);
 //   - one dependent load round a step: at p, with p's code decoded, the
 //     thread loads z and fdr of p's successor together; that completes p's
 //     terminal test and is the next step's operand;
@@ -137,9 +138,6 @@
 namespace {
 
 constexpr int kIncDiag = 1 << 16;  // packed count: diagonal steps in bits 16-31
-// Terminals are encoded as Zt = z - 2^20, so Zt < -2^19 marks a terminal.
-constexpr float kOff = 1048576.0f;
-constexpr float kHalf = 524288.0f;
 constexpr float kNoData = -100.0f;
 constexpr int kBlockX = 32;  // a downslope block's columns: one warp along a row
 constexpr int kBlockY = 8;   // a downslope block's rows
@@ -159,15 +157,14 @@ struct DownslopeGeometry {
   int grid_rows, grid_cols;  // tracked: the global grid's shape
 };
 
-// Downslope: from each start, walk until Zt <= z0 - ed at the cell
-// reached, or to a terminal that holds still, or max_steps steps; then the
-// ratio (z0 - z at the stop) / path length, 0 for a walk of no step, -100
-// where z0 is NoData.  kTrack: also the flag of a walk that stopped at a
-// terminal that only the window's edge made.  The serial walk knows its
-// stop cell, so the flag is read there directly: exact for fractional
-// elevations too, where the TPU tiers' second Zt offset is exact only for
-// integers.  A start that is itself such a terminal stops at once and
-// carries its own flag; a walk cut by the cap is exact and is not flagged.
+// Downslope: from each start, walk until z <= z0 - ed at the cell reached,
+// or to a terminal, or max_steps steps; then the ratio (z0 - z at the
+// stop) / path length, 0 for a walk of no step, -100 where z0 is NoData.
+// kTrack: also the flag of a walk that stopped at a terminal that only the
+// window's edge made.  The serial walk knows its stop cell, so the flag is
+// read there directly.  A start that is itself such a terminal stops at
+// once and carries its own flag; a walk cut by the cap is exact and is not
+// flagged.
 template <bool kTrack, typename Fdr>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 downslope_kernel(const float* __restrict__ z, const Fdr* __restrict__ fdr,
@@ -199,12 +196,9 @@ downslope_kernel(const float* __restrict__ z, const Fdr* __restrict__ fdr,
     fn = static_cast<int>(fdr[next]);
   }
   bool terminal = !inside || zn == kNoData || zc == kNoData;
-  float zt = terminal ? zc - kOff : zc;
   int steps = 0, diags = 0;
-  if (!(zt <= thresh)) {  // a terminal start cell stops at once, pk = 0
-    // A terminal that did not stop the walk holds still for good: the
-    // lookahead's state would stay (pk, Zt) to the cap.
-    while (steps < max_steps && !terminal) {
+  if (!terminal && !(zc <= thresh)) {  // a terminal start cell stops at once, pk = 0
+    while (steps < max_steps) {
       ++steps;
       diags += diag;
       r += dy;  // the row serves the flag alone
@@ -219,8 +213,7 @@ downslope_kernel(const float* __restrict__ z, const Fdr* __restrict__ fdr,
         fn = static_cast<int>(fdr[next]);
       }
       terminal = !inside || zn == kNoData;
-      zt = terminal ? zc - kOff : zc;
-      if (zt <= thresh) break;
+      if (terminal || zc <= thresh) break;
     }
   }
   // The packed counts (the diagonal count in bits 16-31, as repeated
@@ -228,10 +221,9 @@ downslope_kernel(const float* __restrict__ z, const Fdr* __restrict__ fdr,
   const int pk = static_cast<int>(static_cast<unsigned>(steps - diags) +
                                   static_cast<unsigned>(diags) * kIncDiag);
   // ops/downslope.py::downslope_from_state, in its order.
-  const float z_at = zt < -kHalf ? __fadd_rn(zt, kOff) : zt;
   const float dist = __fadd_rn(__fmul_rn(static_cast<float>(pk & 0xFFFF), c_card),
                                __fmul_rn(static_cast<float>(pk >> 16), c_diag));
-  const float down = pk == 0 ? 0.0f : __fdiv_rn(__fsub_rn(z0, z_at), dist);
+  const float down = pk == 0 ? 0.0f : __fdiv_rn(__fsub_rn(z0, zc), dist);
   const int o = i * g.cols + j;
   out[o] = z0 == kNoData ? kNoData : down;
   if constexpr (kTrack) {
@@ -241,7 +233,7 @@ downslope_kernel(const float* __restrict__ z, const Fdr* __restrict__ fdr,
         static_cast<unsigned>(r + dy + g.row0) < static_cast<unsigned>(g.grid_rows) &&
         static_cast<unsigned>(c + dx + g.col0) < static_cast<unsigned>(g.grid_cols);
     const bool cut = valid && !inside && in_grid && zc != kNoData;
-    trunc[o] = (zt <= thresh && zt < -kHalf && cut) ? 1 : 0;
+    trunc[o] = (terminal && cut) ? 1 : 0;
   }
 }
 

@@ -11,7 +11,6 @@ import numpy as np
 import torch
 
 from descriptools_tpu_torch.constants import D8_CODES, D8_DX, D8_DY, D8_STEP
-from descriptools_tpu_torch.utils import timing
 
 
 def decode(fdr):
@@ -82,9 +81,10 @@ def d8_flow_direction(dem, nodata=-100):
     code 0.  Each drop is divided by a 0-dim float32 tensor on the DEM's
     device, an IEEE division as in the JAX op: PyTorch's CUDA ``div`` by a
     Python scalar multiplies by the reciprocal, which can move a gradient
-    by an ulp and change which neighbour wins a tie.  Each divisor is a
-    copy from the host: 8 ``host_writes`` of the open span
-    (``utils.timing``).
+    by an ulp and change which neighbour wins a tie.  Each divisor is
+    filled on the device (``torch.full``: the value is a launch argument),
+    not copied from the host, which on a card waits for every queued
+    launch.
     """
     dem = dem.to(torch.float32)
     rows, cols = dem.shape
@@ -93,8 +93,7 @@ def d8_flow_direction(dem, nodata=-100):
     code_out = torch.zeros(dem.shape, dtype=torch.int32, device=dem.device)
     for code, cdy, cdx, cs in zip(D8_CODES, D8_DY, D8_DX, D8_STEP):
         nbr = pad[1 + cdy : 1 + cdy + rows, 1 + cdx : 1 + cdx + cols]
-        grad = (dem - nbr) / torch.tensor(np.float32(cs), device=dem.device)
-        timing.count("host_writes")
+        grad = (dem - nbr) / torch.full((), float(np.float32(cs)), dtype=torch.float32, device=dem.device)
         ok = (nbr != nodata) & (grad > best)
         best = torch.where(ok, grad, best)
         code_out = torch.where(ok, int(code), code_out)

@@ -22,16 +22,13 @@ import torch
 
 from descriptools_tpu_torch import oracle
 from descriptools_tpu_torch.constants import NODATA
-from descriptools_tpu_torch.utils import timing
 
 
 def _scalar(value, like):
     """``value`` rounded to ``like``'s dtype, as a 0-dim tensor on its
-    device: a copy from the host, counted as the open span's
-    ``host_writes`` (``utils.timing``; PyTorch copies to a card
-    synchronously)."""
-    timing.count("host_writes")
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+    device, filled there (``torch.full``: the value is a launch argument;
+    a copy from the host would wait on a card for every queued launch)."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def min_max_scale(mat, mn, mx, nodata=NODATA):

@@ -8,7 +8,7 @@ built or loaded at import: ``build`` compiles ``csrc/*.cu`` at first launch.
 
 
 def _wrappers():
-    from descriptools_tpu_torch.ops.cuda import stencil, walk
+    from descriptools_tpu_torch.ops.cuda import classify, stencil, walk
 
     return {
         "stencil": stencil.stencil,
@@ -18,6 +18,7 @@ def _wrappers():
         "absorbing_walk": walk.absorbing_walk,
         "downslope_walk_tracked": walk.downslope_walk_tracked,
         "flow_walk_blocked": walk.flow_walk_blocked,
+        "cutoff_count": classify.cutoff_count,
     }
 
 

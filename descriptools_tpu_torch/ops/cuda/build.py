@@ -75,6 +75,10 @@ SIGNATURES = {
         ctypes.POINTER(_I), _VP,
     ],
     "fold_band_width": [],
+    # the calibration's counting pass: hand, flood, h00 (on the card), n,
+    # cuts (float*, host), k, over, counts (2k + 1 uint64, zeroed), SMs,
+    # stream
+    "launch_cutoff_count": [_VP, _VP, _VP, ctypes.c_longlong, ctypes.POINTER(_F), _I, _I, _VP, _I, _VP],
 }
 
 

@@ -3,19 +3,27 @@
 Counterpart of ``descriptools_tpu/ops/downslope.py``.  Each cell walks its
 D8 path until the elevation there is at or below ``z - ed``, a terminal
 (border exit, NoData target, dead end) or ``max_steps``; the result is
-``(z - z_stop) / dist_stop`` in every branch.
+``(z - z_stop) / dist_stop`` in every branch, with ``z_stop`` the
+elevation at the stop as it is: descriptools' own result
+(``oracle.downslope_oracle``).
 
 The plain engine is split into three parts, so that each can be held to
 its JAX counterpart:
 
 - :func:`walk_inputs` builds the walk's operands: ``fdr_eff`` (0 at
-  terminals, so terminals hold still), ``z``, and ``zt0`` (z with terminals
-  offset by -2^20, so one compare ``Zt <= z0 - ed`` catches both stops);
-- :func:`jacobi_walk` returns the stop state ``(pk, Zt)``: ``pk`` the
+  terminals, so terminals hold still), ``z``, and ``term0`` (the terminal
+  flag, carried apart from the elevation);
+- :func:`jacobi_walk` returns the stop state ``(pk, z_stop)``: ``pk`` the
   cardinal and diagonal step counts packed in one int32 (bits 0-15 /
-  16-31), ``Zt`` the offset-encoded elevation at the stop (synchronous pull
-  sweeps, as the JAX ``_downslope_jacobi``);
+  16-31), ``z_stop`` the elevation at the stop (synchronous pull sweeps, as
+  the JAX ``_downslope_jacobi``);
 - :func:`downslope_from_state` forms the ratio once, post-pass.
+
+The JAX engines encode a terminal as ``z - 2^20`` in the elevation itself,
+which is exact for integer elevations and rounds fractional ones to 1/16 m
+at terminal stops.  The port carries the flag apart, so it is bitwise the
+JAX engines on integer DEMs and, on fractional ones, everywhere but at
+terminal stops, where it is exact.
 
 The CUDA kernel (``ops.cuda.walk.downslope_walk``) does all three in one
 launch from dem and fdr, bitwise this composition (:func:`_downslope_jacobi`).
@@ -39,11 +47,6 @@ from descriptools_tpu_torch.constants import D8_STEP, DOWNSLOPE_MAX_STEPS, NODAT
 from descriptools_tpu_torch.d8 import decode, pull8, successor
 
 _INC_DIAG = 1 << 16
-# Terminal offset of the Zt encoding: exact for integer-valued elevations
-# (f32 ulp just below 2^20 is 1/16), and it rounds fractional ones to 1/16
-# exactly as the JAX engines do.
-_OFF = float(1 << 20)
-_HALF = float(1 << 19)
 _NEG_INF = float(np.float32(-3e38))  # the descent tables' key of a terminal
 
 
@@ -100,24 +103,24 @@ def _terminal_and_step(dem, fdr, px, nodata=NODATA):
 
 
 def walk_inputs(dem, fdr, px):
-    """(fdr_eff int32, z f32, zt0 f32) — the operands of every walk engine."""
+    """(fdr_eff int32, z f32, term0 bool) — the operands of every walk
+    engine."""
     z, terminal, _ = _terminal_and_step(dem, fdr, px)
     fdr_eff = torch.where(terminal, 0, fdr.to(torch.int32))
-    zt0 = torch.where(terminal, z - _OFF, z)
-    return fdr_eff, z, zt0
+    return fdr_eff, z, terminal
 
 
-def jacobi_walk(fdr_eff, z, zt0, elevation_difference, max_steps, trunc0=None):
+def jacobi_walk(fdr_eff, z, term0, elevation_difference, max_steps, trunc0=None):
     """Plain walk engine: the shared t-step lookahead, one pull sweep per
-    step, each cell's stop state frozen at its first hit.
+    step, each cell's stop state frozen at its first hit: a terminal, or an
+    elevation at or below ``z - ed``.
 
-    Returns (pk int32, Zt f32) at each cell's stop (or at the horizon for
-    cells that reach ``max_steps``).  With ``trunc0`` (bool, see
+    Returns (pk int32, z_stop f32) at each cell's stop (or at the horizon
+    for cells that reach ``max_steps``).  With ``trunc0`` (bool, see
     :func:`trunc_cells`) it also pulls that raster along the walk and
-    returns a third, bool raster: the walk stopped at a terminal
-    (``Zt < -2^19``) that ``trunc0`` marks.  A start that is itself such a
-    terminal carries its own flag; a walk that reaches the cap is exact
-    and is not flagged."""
+    returns a third, bool raster: the walk stopped at a terminal that
+    ``trunc0`` marks.  A start that is itself such a terminal carries its
+    own flag; a walk that reaches the cap is exact and is not flagged."""
     check_max_steps(max_steps)
     track = trunc0 is not None
     incs = step_inc_consts()
@@ -126,51 +129,50 @@ def jacobi_walk(fdr_eff, z, zt0, elevation_difference, max_steps, trunc0=None):
         inc = torch.where(fdr_eff == code, c, inc)
     thresh = z - float(np.float32(elevation_difference))
     pk = torch.zeros_like(inc)
-    zt = zt0
-    stopped = zt0 <= thresh  # stop at k=0 when the start itself is terminal
-    res_pk, res_zt = pk, zt0
+    zs, ts = z, term0
+    stopped = term0 | (z <= thresh)  # stop at k=0 when the start itself is terminal
+    res_pk, res_zs = pk, z
     if track:
         tt = trunc0.to(torch.bool)
-        res_t = tt & (zt0 < -_HALF)
+        res_t = tt & term0
     t = 0
     unroll = 8  # steps between the host-side convergence checks
     while t < max_steps and not bool(stopped.all()):
         for _ in range(min(unroll, max_steps - t)):
             if track:
-                p_pk, p_zt, tt = pull8(fdr_eff, [pk, zt, tt], [0, 0.0, False])
+                p_pk, zs, ts, tt = pull8(fdr_eff, [pk, zs, ts, tt], [0, 0.0, False, False])
             else:
-                p_pk, p_zt = pull8(fdr_eff, [pk, zt], [0, 0.0])
+                p_pk, zs, ts = pull8(fdr_eff, [pk, zs, ts], [0, 0.0, False])
             pk = inc + p_pk
-            zt = p_zt
-            hit = (~stopped) & (zt <= thresh)
+            hit = (~stopped) & (ts | (zs <= thresh))
             res_pk = torch.where(hit, pk, res_pk)
-            res_zt = torch.where(hit, zt, res_zt)
+            res_zs = torch.where(hit, zs, res_zs)
             if track:
-                res_t = torch.where(hit, tt & (zt < -_HALF), res_t)
+                res_t = torch.where(hit, tt & ts, res_t)
             stopped = stopped | hit
         t += unroll
     # Cap: unstopped cells take the state at the lookahead horizon.
-    out = torch.where(stopped, res_pk, pk), torch.where(stopped, res_zt, zt)
+    out = torch.where(stopped, res_pk, pk), torch.where(stopped, res_zs, zs)
     return (*out, res_t & stopped) if track else out
 
 
-def downslope_from_state(z, pk, zt, px):
+def downslope_from_state(z, pk, z_stop, px):
     """Post-pass: ``(z - z_stop) / dist(pk)``, 0 for zero-length walks,
     -100 on NoData."""
-    z_at = torch.where(zt < -_HALF, zt + _OFF, zt)
-    out = torch.where(pk == 0, 0.0, (z - z_at) / unpack_dist(pk, px))
+    out = torch.where(pk == 0, 0.0, (z - z_stop) / unpack_dist(pk, px))
     return torch.where(z == NODATA, float(NODATA), out)
 
 
 def _downslope_jacobi(dem, fdr, px, elevation_difference, max_steps, trunc0=None):
-    """Downslope through the plain engine (bitwise the JAX jacobi engine).
-    With ``trunc0``: (downslope, truncation flags), as :func:`jacobi_walk`."""
-    fdr_eff, z, zt0 = walk_inputs(dem, fdr, px)
+    """Downslope through the plain engine (bitwise the JAX jacobi engine
+    on integer DEMs; exact at terminal stops on fractional ones).  With
+    ``trunc0``: (downslope, truncation flags), as :func:`jacobi_walk`."""
+    fdr_eff, z, term0 = walk_inputs(dem, fdr, px)
     if trunc0 is None:
-        pk, zt = jacobi_walk(fdr_eff, z, zt0, elevation_difference, max_steps)
-        return downslope_from_state(z, pk, zt, px)
-    pk, zt, tr = jacobi_walk(fdr_eff, z, zt0, elevation_difference, max_steps, trunc0)
-    return downslope_from_state(z, pk, zt, px), tr
+        pk, zs = jacobi_walk(fdr_eff, z, term0, elevation_difference, max_steps)
+        return downslope_from_state(z, pk, zs, px)
+    pk, zs, tr = jacobi_walk(fdr_eff, z, term0, elevation_difference, max_steps, trunc0)
+    return downslope_from_state(z, pk, zs, px), tr
 
 
 def downslope_window(dem_f, fdr, px, elevation_difference, max_steps, row0, col0,

@@ -45,8 +45,8 @@ def flow_accumulation(fdr, max_path=None, stats=None):
     ``rounds``, the doubling rounds run, and ``live``, the cells still
     live entering each round.  Counters of the open span
     (``utils.timing``): ``rounds``, ``live_cells`` (the sum of ``live``) and
-    ``host_reads``, 1 + 2 a round: the live list's length, read on the host
-    once to start and twice a round.
+    ``host_reads``, 1 + 1 a round: the live list's length, read on the host
+    once to start and once a round.
     """
     rows, cols = fdr.shape
     n = rows * cols
@@ -67,9 +67,9 @@ def flow_accumulation(fdr, max_path=None, stats=None):
         f.index_add_(0, to, f[live])
         to = succ[to]
         succ[live] = to
-        keep = to != n
-        live, to = live[keep], to[keep]  # two boolean indexings: two host reads
-        timing.count("host_reads", 2)
+        keep = torch.nonzero(to != n).reshape(-1)  # the host reads its length
+        live, to = live[keep], to[keep]
+        timing.count("host_reads")
         rounds += 1
     stats["rounds"] = rounds
     timing.count("rounds", rounds)
@@ -81,8 +81,8 @@ def derive_terrain(dem, nodata=NODATA, max_path=None, stats=None):
     """(fdr, fac) derived from a DEM: steepest-descent D8 + accumulation,
     fac NoData where the DEM is.  ``stats`` as for ``flow_accumulation``.
     Spans (``utils.timing``): ``terrain`` and, inside it, ``terrain.d8``
-    (counter ``host_writes``: its 8 divisors) and ``terrain.accumulation``
-    (with the NoData mask; counters as for ``flow_accumulation``)."""
+    and ``terrain.accumulation`` (with the NoData mask; counters as for
+    ``flow_accumulation``)."""
     with timing.span("terrain"):
         with timing.span("terrain.d8"):
             fdr = d8_flow_direction(dem, nodata=nodata)

@@ -10,15 +10,22 @@ that float64 path.  Here:
      probe and a count of non-integer cells (exactly ``np.unique(hand)[1]``
      and ``[-1]``: the second element is the smallest value distinct from
      the global min);
-  2. the threshold search: HAND from an integer DEM is integer-valued, so
-     the float64 predicate ``fl64((h - mn)/(mx - mn)) <= th`` reduces to
-     ``h <= cutoff(th)`` with an integer cutoff found by host-side float64
-     bisection (``_integer_cutoff``).  ONE device pass builds the joint
-     histogram of (integer HAND value x flooded bit); every cutoff's
-     TP/FP/FN falls out of host prefix sums, so the whole coarse-to-fine
-     search costs one pass and selects the identical threshold.  Value
-     ranges wider than ``NBINS_MAX`` fall back to one counting pass a
-     search stage;
+  2. the threshold search.  The float64 predicate ``fl64((h - mn)/(mx -
+     mn)) <= th`` is monotone in ``h``, so it is ``h <= cutoff(th)`` in
+     float32 for one cutoff a threshold, found on the host by float64
+     bisection:
+       - integer HAND (an integer DEM): an integer cutoff
+         (``_integer_cutoff``), and ONE device pass builds the joint
+         histogram of (integer HAND value x flooded bit); every cutoff's
+         TP/FP/FN falls out of host prefix sums, so the whole
+         coarse-to-fine search costs one pass and selects the identical
+         threshold.  Value ranges wider than ``NBINS_MAX`` fall back to
+         one counting pass a search stage;
+       - float HAND (a float DEM): a float32 cutoff (``_float_cutoffs``,
+         over the ordered float32 bit patterns), and one counting pass a
+         search stage (``ops.cuda.classify.cutoff_count``: a hand-written
+         kernel on the card), 5 passes and 5 host reads a search; the
+         final threshold's counts are its last stage's;
   3. the class map (0 TN / 1 FP / 2 FN / 3 TP, evaluation.py:153-166),
      uint8, on the device.
 
@@ -38,6 +45,7 @@ import torch
 
 from descriptools_tpu_torch.constants import NODATA
 from descriptools_tpu_torch.evaluation import _scalar, coarse_to_fine_search
+from descriptools_tpu_torch.ops.cuda.classify import cutoff_count
 from descriptools_tpu_torch.utils import timing
 
 NBINS_MAX = 1 << 22  # widest HAND value range the one-pass histogram bins
@@ -94,19 +102,19 @@ def _hit(hand_blk, cut, under):
     return hand_blk <= cut if under == "under" else hand_blk >= cut
 
 
-def _block_counts(hand_blk, bench_blk, h00, cuts, under):
-    """(len(cuts), 3) int64: TP, FP, FN of ``hand <= cut`` (``>=`` over)
-    for each cut, one cut at a time."""
-    valid = _valid_mask(hand_blk, h00)
-    flooded = _bench01(bench_blk)
-    n_fl = flooded.sum()
-    rows = []
-    timing.count("host_writes")
-    for cut in torch.as_tensor(cuts, dtype=torch.float32, device=hand_blk.device):
-        pred = valid & _hit(hand_blk, cut, under)
-        tp = (pred & flooded).sum()
-        rows.append(torch.stack([tp, pred.sum() - tp, n_fl - tp]))
-    return torch.stack(rows)
+def _block_cut_counts(hand_blk, bench_blk, h00, cuts, under):
+    """One counting pass over a block (``ops.cuda.classify.cutoff_count``):
+    int64 ``(2k + 1,)``, the valid cells each float32 cut hits, the valid
+    flooded ones among them, the flooded cells."""
+    return cutoff_count(hand_blk.to(torch.float32).contiguous(), bench_blk.to(torch.int32).contiguous(),
+                        h00.to(torch.float32), cuts, under)
+
+
+def _tp_fp_fn(c, k):
+    """(k, 3) int64 TP, FP, FN from a counting pass's ``(2k + 1,)``."""
+    c = np.asarray(c, np.int64)
+    pred, tp, n_fl = c[:k], c[k : 2 * k], c[2 * k]
+    return np.stack([tp, pred - tp, n_fl - tp], axis=1)
 
 
 def _block_classmap(hand_blk, bench_blk, h00, cut, under):
@@ -157,6 +165,88 @@ def _integer_cutoff(th, mn, mx, under):
         else:
             lo = mid
     return hi
+
+
+def _f32_keys(x):
+    """Ordered int64 keys of float32 values: monotone in the value, -0.0
+    and +0.0 one key."""
+    bits = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+    return np.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+
+
+def _f32_of_keys(keys):
+    keys = np.asarray(keys, np.int64)
+    bits = np.where(keys < 0, (-keys) | 0x80000000, keys).astype(np.uint32)
+    return bits.view(np.float32)
+
+
+def _float_cutoffs(ths, mn, mx, under):
+    """The float32 h at which the float64 scaled predicate flips, for each
+    threshold of ``ths``: the float counterpart of :func:`_integer_cutoff`.
+
+    under:  largest  float32 h with fl64((h - mn)/(mx - mn)) <= th  (pred: h <= cut)
+    else:   smallest float32 h with fl64((h - mn)/(mx - mn)) >= th  (pred: h >= cut)
+
+    fl64 is monotone non-decreasing in h, so the flip is one point of the
+    ordered float32 bit patterns, and comparing float32 HAND against it is
+    EXACTLY the oracle's float64 comparison.  It lies within a float32 step
+    or two of ``f32(mn + th (mx - mn))`` wherever that sum does not cancel,
+    so each threshold first evaluates the 17 patterns around it, all of a
+    stage's thresholds in one array, and takes the flip where they hold
+    it.  The rest (an empty or full predicate, or a range whose sum
+    cancels) bisect the whole finite range (:func:`_bisect_cutoffs`).  The
+    search runs between a stage's counting passes, with the card idle, so
+    its host time is the job's."""
+    ths = np.asarray(ths, np.float64)
+    mn, mx = np.float64(mn), np.float64(mx)
+    timing.count("float_cutoffs", int(ths.size))
+
+    def holds(keys, th):
+        scaled = (_f32_of_keys(keys).astype(np.float64) - mn) / (mx - mn)
+        return scaled <= th if under == "under" else scaled >= th
+
+    big = np.finfo(np.float32).max
+    top = int(_f32_keys(big))
+    guess = _f32_keys(np.clip(mn + ths * (mx - mn), -big, big).astype(np.float32))
+    near = np.clip(guess[:, None] + np.arange(-8, 9), -top, top)
+    ok = holds(near, ths[:, None])  # along a row: True then False under, False then True over
+    n_ok = ok.sum(axis=1)
+    if under == "under":
+        flip, pick = ok[:, 0] & ~ok[:, -1], n_ok - 1
+    else:
+        flip, pick = ~ok[:, 0] & ok[:, -1], near.shape[1] - n_ok
+    pick = np.clip(pick, 0, near.shape[1] - 1)
+    cut = _f32_of_keys(np.take_along_axis(near, pick[:, None], axis=1)[:, 0])
+    if not flip.all():
+        cut[~flip] = _bisect_cutoffs(ths[~flip], holds, under, top)
+    return cut
+
+
+def _bisect_cutoffs(ths, holds, under, top):
+    """:func:`_float_cutoffs` by bisection over the whole finite float32
+    range (about 32 float64 evaluations).  An empty predicate gives the
+    cutoff that no finite value passes (-inf under, +inf over), a full one
+    the cutoff every finite value passes."""
+    lo = np.full(ths.shape, -top, np.int64)
+    hi = np.full(ths.shape, top, np.int64)
+    at_lo, at_hi = holds(lo, ths), holds(hi, ths)
+    empty, full = (~at_lo, at_hi) if under == "under" else (~at_hi, at_lo)
+    # invariant on the live thresholds: the predicate holds at one end and
+    # fails at the other (lo under, hi over)
+    step = ~(empty | full) & (hi - lo > 1)
+    while bool(step.any()):
+        mid = (lo + hi) // 2
+        ok = holds(mid, ths)
+        if under == "under":
+            lo, hi = np.where(step & ok, mid, lo), np.where(step & ~ok, mid, hi)
+        else:
+            lo, hi = np.where(step & ~ok, mid, lo), np.where(step & ok, mid, hi)
+        step &= hi - lo > 1
+    cut = _f32_of_keys(lo if under == "under" else hi)
+    inf = np.float32(np.inf)
+    if under == "under":
+        return np.where(empty, -inf, np.where(full, inf, cut)).astype(np.float32)
+    return np.where(empty, inf, np.where(full, -inf, cut)).astype(np.float32)
 
 
 def _read(t):
@@ -247,7 +337,9 @@ def _mesh_classify_flood(hand, flood, mesh, under, shape, crop):
         return j[:nbins], j[nbins : 2 * nbins], j[2 * nbins]
 
     def counts(cuts):
-        return per_block(lambda h, f: _block_counts(h, f, h00, cuts, under)).cpu().numpy()
+        with timing.span("classify.count", passes=1, cuts=len(cuts)):
+            c = per_block(lambda h, f: _block_cut_counts(h, f, h00, cuts, under))
+            return _tp_fp_fn(_read(c), len(cuts))
 
     th, correctness, fit, cut_i = _search(gmin, mn2, mx, nonint, under, histogram, counts)
     class_map = ShardedRaster(mesh, hand_s.shape, {
@@ -259,45 +351,65 @@ def _mesh_classify_flood(hand, flood, mesh, under, shape, crop):
     return th, correctness, fit, class_map
 
 
+def _stage_counts(counts):
+    """``counts_at(cuts)`` over counting passes (``counts(float32 cuts)`` ->
+    (len, 3) TP, FP, FN): one pass for the cuts not counted yet, so the
+    final threshold's cut, which its last stage counted, costs none."""
+    seen = {}
+
+    def counts_at(cuts):
+        cuts = np.asarray(cuts, np.float32)
+        new = [c for c in dict.fromkeys(cuts.tolist()) if c not in seen]
+        if new:
+            seen.update(zip(new, counts(np.asarray(new, np.float32))))
+        return np.stack([seen[c] for c in cuts.tolist()])
+
+    return counts_at
+
+
 def _search(gmin, mn2, mx, nonint, under, histogram, counts):
-    """The host part: the integer and range checks, the coarse-to-fine
-    search over the joint histogram (``histogram(lo, nbins)`` -> (hv, ht,
-    n_fl)) or, above ``NBINS_MAX`` bins, one counting pass a search stage
-    (``counts(cuts)`` -> (len(cuts), 3) TP, FP, FN).  Returns (threshold,
-    correctness, fit, integer cutoff)."""
-    if nonint != 0:
-        raise ValueError(
-            "HAND is not integer-valued; the exact sharded calibration "
-            "requires an integer DEM — use pipeline.classify_flood"
-        )
+    """The host part: the range checks, the cutoffs, and the coarse-to-fine
+    search over the joint histogram (integer HAND: ``histogram(lo, nbins)``
+    -> (hv, ht, n_fl)) or over one counting pass a search stage (float
+    HAND, or integer HAND above ``NBINS_MAX`` bins: ``counts(float32
+    cuts)`` -> (len(cuts), 3) TP, FP, FN).  Returns (threshold,
+    correctness, fit, cutoff)."""
     # np.unique(hand)[1] / [-1] (pipeline.classify_flood): the smallest
     # value distinct from the global min, and the max.
     mn = mn2
-    if not np.isfinite(mn) or mx <= mn or abs(mn) > _F32_EXACT or mx > _F32_EXACT:
+    if not np.isfinite(mn) or mx <= mn or (nonint == 0 and (abs(mn) > _F32_EXACT or mx > _F32_EXACT)):
         raise ValueError(f"degenerate HAND value range [{mn}, {mx}]")
 
-    # Smallest real HAND value (NODATA is the min iff the raster has any).
-    lo = int(gmin if gmin != NODATA else mn2)
-    nbins = int(mx) - lo + 1
-    if nbins <= NBINS_MAX:
-        # One counting pass for the ENTIRE search: joint histogram + host
-        # prefix sums.
-        counts_at = _histogram_counts(*histogram(lo, nbins), lo, nbins, under)
+    if nonint != 0:
+        def cutoffs(ths):
+            return _float_cutoffs(ths, mn, mx, under)
+
+        counts_at = _stage_counts(counts)
     else:
-        # Huge value ranges: one device counting pass per search stage.
-        counts_at = counts
+        def cutoffs(ths):
+            return np.array([_integer_cutoff(th, mn, mx, under) for th in ths])
+
+        # Smallest real HAND value (NODATA is the min iff the raster has any).
+        lo = int(gmin if gmin != NODATA else mn2)
+        nbins = int(mx) - lo + 1
+        if nbins <= NBINS_MAX:
+            # One counting pass for the ENTIRE search: joint histogram + host
+            # prefix sums.
+            counts_at = _histogram_counts(*histogram(lo, nbins), lo, nbins, under)
+        else:
+            # Huge value ranges: one device counting pass per search stage.
+            counts_at = _stage_counts(counts)
 
     def fits_at(values, scale):
-        cuts = [_integer_cutoff(v / scale, mn, mx, under) for v in values]
-        c = counts_at(cuts).astype(np.float64)
+        c = counts_at(cutoffs([v / scale for v in values])).astype(np.float64)
         tp, fp, fn = c[:, 0], c[:, 1], c[:, 2]
         return tp / (tp + fn + fp)
 
     th = coarse_to_fine_search(fits_at)
 
-    cut_i = _integer_cutoff(th, mn, mx, under)
-    tp, fp, fn = counts_at([cut_i])[0].astype(np.float64)
-    return th, float(tp / (fn + tp)), float(tp / (tp + fn + fp)), cut_i
+    cut = cutoffs([th])[0]
+    tp, fp, fn = counts_at([cut])[0].astype(np.float64)
+    return th, float(tp / (fn + tp)), float(tp / (tp + fn + fp)), cut.item()
 
 
 def sharded_classify_flood(hand, flood, mesh=None, under="under", shape=None, crop=True, *,
@@ -320,15 +432,20 @@ def sharded_classify_flood(hand, flood, mesh=None, under="under", shape=None, cr
     ranks.  The class map stays a ``ShardedRaster`` with ``crop=False``,
     and is the cropped global map on every rank with ``crop=True``.
 
-    Requires integer-valued HAND (integer DEM input; the reference example
-    feeds int16) and raises otherwise, pointing at the host float path.
+    Integer HAND (an integer DEM: the reference example feeds int16) is
+    calibrated from one histogram pass; float HAND (a float DEM) from one
+    counting pass a search stage.  Both select the float64 path's
+    threshold exactly.
 
     Spans (``utils.timing``), on one device: ``classify`` and, inside it,
     ``classify.stats`` (the casts and the statistics' one host read),
     ``classify.search`` (``_search``: the histogram pass or the counting
-    passes, and the host's search) and ``classify.map``; each read of a
-    device value on the host adds 1 to the open span's ``host_reads``, and
-    each copy of a host value to the device 1 to its ``host_writes``.
+    passes, and the host's search; ``float_cutoffs``, the float32
+    bisections it ran) with a ``classify.count`` span a counting pass
+    (``passes`` 1, ``cuts``, the cutoffs it counted) and ``classify.map``;
+    each read of a device value on the host adds 1 to the open span's
+    ``host_reads``.  Its scalars are filled on the device, so it makes no
+    ``host_writes``.
     """
     if mesh is not None:
         from descriptools_tpu_torch.parallel.mesh import Mesh
@@ -356,11 +473,15 @@ def sharded_classify_flood(hand, flood, mesh=None, under="under", shape=None, cr
             h00 = hand_s[0, 0]
             stats = torch.stack([gmin, mn2, mx, _block_nonint(real).to(torch.float32)])
             gmin, mn2, mx, nonint = _read(stats.double())
+        def counts(cuts):
+            with timing.span("classify.count", passes=1, cuts=len(cuts)):
+                return _tp_fp_fn(_read(_block_cut_counts(hand_s, flood_s, h00, cuts, under)), len(cuts))
+
         with timing.span("classify.search"):
             th, correctness, fit, cut_i = _search(
                 gmin, mn2, mx, nonint, under,
                 lambda lo, nbins: _block_histogram(hand_s, flood_s, h00, lo, nbins),
-                lambda cuts: _read(_block_counts(hand_s, flood_s, h00, cuts, under)),
+                counts,
             )
         with timing.span("classify.map"):
             class_map = _block_classmap(hand_s, flood_s, h00, float(cut_i), under)

@@ -225,11 +225,13 @@ def downslope_cases(rows=40, cols=56, seed=0):
     - ``fdr_int16``, ``fdr_int64``: NoData, border exits and invalid codes,
       with 257 and -1 too, in a wider dtype;
     - ``terminal_holds_still``: eastward walks into terminals (a dead end,
-      and the east border) more than 2^20 - ed above them, which do not stop
-      them, so they hold still to the cap;
+      and the east border) more than 2^20 - ed above them: the JAX engines'
+      -2^20 terminal offset does not stop them, so they hold still to the
+      cap there; the port stops them at the terminal, as descriptools does;
     - ``fractional_terminal_stops``: eastward walks on fractional elevations
-      that all stop at the east border's exits, whose elevation the -2^20
-      terminal offset rounds to 1/16.
+      that all stop at the east border's exits, whose elevation the JAX
+      engines' -2^20 terminal offset rounds to 1/16 and the port reads
+      exactly.
     """
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:rows, 0:cols]

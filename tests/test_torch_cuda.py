@@ -97,6 +97,7 @@ def test_suite_runs_every_kernel_and_matches_plain(dev, basin):
     assert launch_counters() == dict(
         stencil=1, downslope_walk=1, flow_walk=1,
         stencil_padded=0, absorbing_walk=0, downslope_walk_tracked=0, flow_walk_blocked=0,
+        cutoff_count=0,
     )
     plain = pipeline.descriptor_suite(*inputs, pipeline.PipelineConfig(engine="torch"))
     for k in ("slope", "downslope", "fdist", "indices", "hand"):
@@ -128,13 +129,17 @@ def test_downslope_kernel_matches_plain_on_adversarial_cases(dev, fdr_dtype):
 def test_tracked_kernel_matches_plain_on_the_interior(dev, basin):
     """The tracked kernel launched over a window's interior against the plain
     composition (trunc_cells, the tracked walk, the interior), at several
-    halos, on a basin window and on the adversarial int16 window."""
+    halos, on a basin window, on the adversarial int16 window and on a
+    fractional window whose walks all stop at its east edge (exact terminal
+    elevations, bitwise in both)."""
     dem_f = torch.as_tensor(basin["dem"].astype(np.float32), device=dev)[10:90, 20:200].contiguous()
     fdr = torch.as_tensor(basin["fdr"], device=dev)[10:90, 20:200].contiguous()
     dem_a, fdr_a, _, _ = downslope_cases()["fdr_int16"]
+    dem_x, fdr_x, _, _ = downslope_cases()["fractional_terminal_stops"]
     windows = [(dem_f, fdr, (10, 20), (130, 257)),
                (torch.as_tensor(np.round(dem_a), device=dev), torch.as_tensor(fdr_a, device=dev),
-                (0, 9), (40, 86))]
+                (0, 9), (40, 86)),
+               (torch.as_tensor(dem_x, device=dev), torch.as_tensor(fdr_x, device=dev), (0, 0), (40, 112))]
     for d, f, origin, grid in windows:
         for halo in (0, 1, 6, 17):
             got = walk.downslope_walk_tracked(d, f, 12.5, 5.0, 5000, *origin, *grid, halo)
@@ -425,6 +430,66 @@ def test_calibration_on_the_card_matches_the_host(dev, basin):
     flood = torch.as_tensor(basin["flood"], device=dev)
     assert (evaluation.calibration(desc, flood, backend="torch")
             == evaluation.calibration(desc.cpu(), flood.cpu(), backend="torch"))
+
+
+@pytest.mark.parametrize("under", ["under", "over"])
+def test_cutoff_count_kernel_matches_plain(dev, under):
+    """The counting kernel bitwise its plain version (bucketize, scatter-add):
+    1 to 32 cutoffs, unsorted with repeats and infinities, NaN and NoData
+    HAND, the corner probe (data and NoData), flood 1, 2 and NoData; sizes
+    whose cells are and are not a multiple of 4, a view that starts off the
+    16-byte grid, and 4096² (the vector path over many blocks)."""
+    from descriptools_tpu_torch.ops.cuda import classify as cc
+
+    rng = np.random.default_rng(19)
+    for rows, cols in ((1, 1), (3, 5), (64, 64), (257, 129), (4096, 4096)):
+        hand = (rng.gamma(1.5, 4.0, (rows, cols + 1))).astype(np.float32)
+        hand[rng.random(hand.shape) < 0.05] = -100
+        hand[rng.random(hand.shape) < 0.01] = np.nan
+        hand[rng.random(hand.shape) < 0.01] = hand[0, 0]
+        flood = rng.choice(np.array([0, 1, 2, -100, 3], np.int32), hand.shape, p=[0.5, 0.3, 0.1, 0.05, 0.05])
+        for offset in (0, 1):
+            h = torch.as_tensor(hand, device=dev).reshape(-1)[offset : offset + rows * cols].reshape(rows, cols)
+            f = torch.as_tensor(flood, device=dev).reshape(-1)[offset : offset + rows * cols].reshape(rows, cols)
+            for probe in (h.reshape(-1)[0], torch.tensor(-100.0, device=dev)):
+                for k in (1, 3, 5, 11, 21, 32):
+                    cuts = np.sort(rng.gamma(1.5, 4.0, k)).astype(np.float32)
+                    if k >= 5:
+                        cuts[1], cuts[3], cuts[-1] = cuts[0], -np.inf, np.inf
+                    rng.shuffle(cuts)
+                    before = cc.cutoff_count.launches
+                    got = cc.cutoff_count(h, f, probe, cuts, under)
+                    assert cc.cutoff_count.launches == before + 1 and got.is_cuda
+                    want = cc.cutoff_count_plain(h.cpu(), f.cpu(), probe.cpu(), cuts, under)
+                    assert torch.equal(got.cpu(), want), (rows, cols, offset, k)
+
+
+def test_float_calibration_on_the_card_matches_the_host(dev, basin):
+    """A fractional DEM's suite on the card, then the float path of the
+    one-card calibration (5 counting passes) against the port's host float64
+    path (the JAX package is not on the card; the CPU tests hold the port's
+    host path to the JAX package's on float HAND); K3 on that DEM bitwise its
+    plain engine."""
+    from descriptools_tpu_torch.ops.cuda import classify as cc
+    from descriptools_tpu_torch.parallel.classify import sharded_classify_flood
+
+    frac = np.random.default_rng(8).uniform(0.0, 0.99, basin["dem"].shape)
+    dem = np.where(basin["dem"] == -100, -100.0, basin["dem"] + frac).astype(np.float32)
+    inputs = [torch.as_tensor(a, device=dev) for a in (dem, basin["fdr"], basin["fac"].astype(np.int32),
+                                                       basin["river"])]
+    out = pipeline.descriptor_suite(*inputs)
+    plain = pipeline.descriptor_suite(*inputs, pipeline.PipelineConfig(engine="torch"))
+    assert torch.equal(out["downslope"], plain["downslope"]) and torch.equal(out["hand"], plain["hand"])
+    hand = out["hand"]
+    assert bool((hand != torch.round(hand)).any())
+    for under in ("under", "over"):
+        flood = torch.as_tensor(basin["flood"], device=dev)
+        want = pipeline.classify_flood(hand, basin["flood"], under=under)
+        before = cc.cutoff_count.launches
+        got = sharded_classify_flood(hand, flood, under=under)
+        assert cc.cutoff_count.launches == before + 5
+        assert got[:3] == want[:3] and got[3].is_cuda
+        assert np.array_equal(got[3].cpu().numpy(), want[3])
 
 
 def test_compat_on_the_card_matches_the_cpu(dev, basin):

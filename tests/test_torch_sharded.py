@@ -22,6 +22,7 @@ from descriptools_tpu import parallel as jpar
 from descriptools_tpu.ops import downslope as j_downslope
 from descriptools_tpu.parallel.classify import sharded_classify_flood as j_classify
 from descriptools_tpu.pipeline import PipelineConfig as JConfig
+from descriptools_tpu.pipeline import classify_flood as j_classify_flood
 from descriptools_tpu_torch import oracle, pipeline
 from descriptools_tpu_torch.constants import NODATA
 from descriptools_tpu_torch.ops.flow import hand_and_river_fac
@@ -247,13 +248,34 @@ def test_mesh_classifier_counting_fallback_and_padding(monkeypatch):
     want = pipeline.classify_flood(hand, flood)
     mesh = make_mesh((2, 4), device="cpu")
     calls = []
-    real = tclassify._block_counts
+    real = tclassify._block_cut_counts
     monkeypatch.setattr(tclassify, "NBINS_MAX", 4)
-    monkeypatch.setattr(tclassify, "_block_counts", lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setattr(tclassify, "_block_cut_counts", lambda *a: calls.append(1) or real(*a))
     got = tclassify.sharded_classify_flood(hand, flood, mesh, crop=False)
     assert calls and got[:3] == want[:3]
     cmap = got[3].gather().numpy()[:45, :53]
     np.testing.assert_array_equal(cmap, want[3])
+
+
+@pytest.mark.parametrize("under", ["under", "over"])
+def test_mesh_classifier_float_hand(under):
+    """Float HAND (fractional, as a float DEM gives it) on the one-rank gloo
+    mesh: each stage's counting pass summed over the blocks and
+    all-reduced; the threshold, Correctness, Fit and class map of the JAX
+    package's host float64 path (its sharded classifier takes integer HAND
+    only) and of the port's, exactly."""
+    hand, flood = _hand_flood(21, 8)
+    frac = np.random.default_rng(4).uniform(0.0, 0.9, hand.shape)
+    hand = np.where(hand == NODATA, NODATA, hand + frac).astype(np.float32)
+    if under == "over":
+        flood = ((hand != NODATA) & (hand >= 12)).astype(np.uint8)
+    want = j_classify_flood(hand, flood, under=under)
+    host = pipeline.classify_flood(hand, flood, under=under)
+    got = tclassify.sharded_classify_flood(hand, flood, make_mesh((2, 4), device="cpu"), under=under)
+    got = (*got[:3], got[3].numpy())
+    for other in (host, got):
+        assert other[:3] == want[:3]
+        np.testing.assert_array_equal(other[3], want[3])
 
 
 def test_mesh_classifier_refuses_a_non_mesh():
