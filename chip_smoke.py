@@ -6,6 +6,7 @@
     python3 chip_smoke.py --link-probes  # the host link's copy/kernel overlap probes alone
     python3 chip_smoke.py --long-drainage  # the long-drainage parity phase alone
     python3 chip_smoke.py --float-dem  # the float-DEM phase alone
+    python3 chip_smoke.py --d8  # terrain's D8 kernel phase alone
 
 Phases, each printing its own lines:
 
@@ -131,8 +132,10 @@ Phases, each printing its own lines:
 7. an oracle probe: the card's suite on a crop of the basin against the
    float64 ``oracle`` (integers exact, floats within rtol 2e-5);
 8. BASELINE config 3 at 10000x10000: ``derive_terrain`` on
-   ``synthetic_dem(10000, 10000, seed=0)`` (int32), with the
-   accumulation's time, rounds, device time by activity and peak memory; fdr
+   ``synthetic_dem(10000, 10000, seed=0)`` (int32), with its two stages
+   timed as it runs them (the D8 kernel ``d8_successor``, then the
+   accumulation on its successor), the accumulation's rounds and device
+   time by activity, and peak memory; fdr
    bitwise the CPU's, fac held by the donor-sum identity over every cell
    (and bitwise the CPU's at 2178x1534); the river ``fac > RIVER_FAC``;
    the suite through K2/K3/K4 (launch counters read) against
@@ -151,6 +154,14 @@ Phases, each printing its own lines:
    tensors, bitwise, each timed (CUDA events) with the kernel's device
    time and its bound, 8 B a cell (hand f32, flood int32) at the card's
    memory rate;
+8c. terrain's D8 kernel at the tile cells' size (``phase_d8``): the DEMs
+   of both tile cells' mixes (``dem_to_classmap``, int32, and
+   ``float_dem_to_classmap``, float32, at 10000x10000): ``derive_terrain``
+   with the launch counters reset just before (``d8_successor`` 1 launch,
+   no other kernel); ``d8_successor`` and ``d8_successor_plain`` on the
+   same card tensor, fdr and succ bitwise, each timed (CUDA events) with the kernel's device time
+   and its bound, 12 B a cell (dem 4 read, fdr and succ 4 each written) at
+   the card's memory rate;
 9. the measuring entry points: ``bench_torch.py`` in a process of its
    own, as a user runs it, its JSON line read (every key of ``bench.py``'s
    line, engine "cuda", K2, K3 and K4 launched once a suite it ran,
@@ -160,7 +171,7 @@ Phases, each printing its own lines:
    as ``calibration(backend="torch")`` of phase 2's HAND on the CPU).
 
 ``--long-drainage`` runs phases 0 and 2c alone; ``--float-dem`` phases 0
-and 8b.
+and 8b; ``--d8`` phases 0 and 8c.
 
 ``--link-probes`` runs only the host link's probes, on phase 4's grid:
 ``tiled_suite`` at 8192x8192 with and without ``upload_in_prefetch`` under
@@ -229,6 +240,12 @@ KERNELS = {
     # kernel for it (it calibrates float HAND on the host).
     "cutoff_count": dict(
         source="descriptools_tpu_torch/csrc/classify.cu",
+        replaces=None,
+    ),
+    # Terrain's D8 and successor: the JAX package's D8 is jnp
+    # (descriptools_tpu/d8.py:75), no Pallas kernel.
+    "d8_successor": dict(
+        source="descriptools_tpu_torch/csrc/terrain.cu",
         replaces=None,
     ),
 }
@@ -491,10 +508,15 @@ STENCIL_SASS = {"stencil": "stencil_tile_kernelILb0EiE", "stencil_padded": "sten
 
 def stencil_cells(root=ROOT):
     """Cells a thread of the checkout's tiled stencil kernel computes:
-    ``kCells`` in its ``csrc/stencil.cu``, 1 where there is none (a kernel
-    of one cell a thread)."""
-    with open(os.path.join(root, "descriptools_tpu_torch", "csrc", "stencil.cu")) as f:
-        found = re.search(r"constexpr int kCells = (\d+);", f.read())
+    ``kCells`` in its ``csrc/stencil.cu`` or in the ``csrc/tile.cuh`` that
+    it includes, 1 where there is none (a kernel of one cell a thread)."""
+    text = ""
+    for name in ("stencil.cu", "tile.cuh"):
+        path = os.path.join(root, "descriptools_tpu_torch", "csrc", name)
+        if os.path.isfile(path):
+            with open(path) as f:
+                text += f.read()
+    found = re.search(r"constexpr int kCells = (\d+);", text)
     return int(found.group(1)) if found else 1
 
 
@@ -2467,6 +2489,7 @@ def phase_config3(dev, card):
     from descriptools_tpu_torch import d8, pipeline, tiled
     from descriptools_tpu_torch.ops import terrain
     from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
+    from descriptools_tpu_torch.ops.cuda import terrain as ct
     from descriptools_tpu_torch.parallel.classify import sharded_classify_flood
     from descriptools_tpu_torch.utils.synthetic import synthetic_dem
 
@@ -2491,16 +2514,22 @@ def phase_config3(dev, card):
     fdr, fac = terrain.derive_terrain(dem, stats=stats)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
-    acc_ms = median_ms(lambda: terrain.flow_accumulation(fdr), 3)
-    by_activity = device_kernels_ms(lambda: terrain.flow_accumulation(fdr), calls=3)
+    # derive_terrain's two stages as it runs them on the card: the D8 kernel,
+    # then the accumulation on its successor (a copy each call: the rounds
+    # overwrite it).
+    _, succ = ct.d8_successor(dem)
+    accumulate = lambda: terrain.flow_accumulation(fdr, succ=succ.clone())  # noqa: E731
+    acc_ms = median_ms(accumulate, 3)
+    by_activity = device_kernels_ms(accumulate, calls=3)
     top = sorted(by_activity.items(), key=lambda kv: -kv[1])[:4]
-    print("config 3 flow_accumulation, device time a call by activity (torch.profiler): "
-          + ", ".join(f"{k[:48]} {v:.3f} ms" for k, v in top)
+    print("config 3 flow_accumulation on D8's successor (with its copy), device time a call by activity "
+          "(torch.profiler): " + ", ".join(f"{k[:48]} {v:.3f} ms" for k, v in top)
           + f"; all {len(by_activity)} activities {sum(by_activity.values()):.3f} ms  [{card}]")
-    d8_ms = median_ms(lambda: d8.d8_flow_direction(dem), 3)
-    print(f"config 3 derive_terrain {SIDE}x{SIDE}: d8 {d8_ms:.3f} ms, flow_accumulation {acc_ms:.3f} ms, "
-          f"{stats['rounds']} rounds, live cells entering each: {stats['live']}; "
-          f"peak device memory {peak / 2**30:.3f} GiB  [{card}]")
+    d8_ms = median_ms(lambda: ct.d8_successor(dem), 3)
+    del succ
+    print(f"config 3 derive_terrain {SIDE}x{SIDE}: d8_successor {d8_ms:.3f} ms, flow_accumulation on its "
+          f"successor (with its copy) {acc_ms:.3f} ms, {stats['rounds']} rounds, live cells entering each: "
+          f"{stats['live']}; peak device memory {peak / 2**30:.3f} GiB  [{card}]")
 
     t0 = time.perf_counter()
     fdr_cpu = d8.d8_flow_direction(torch.from_numpy(dem_np))
@@ -2682,6 +2711,65 @@ def phase_float_dem(dev, card, errs):
                                   bound_by="bytes")})
 
 
+TILE_MIXES = (("srtm_tile_10k", "dem_to_classmap"), ("lidar_3dep_1m", "float_dem_to_classmap"))
+D8_SEED = 2147507300
+
+
+def phase_d8(dev, card, errs):
+    """Terrain's D8 kernel on each tile cell's DEM (its mix at its size):
+    ``derive_terrain``, with the launch counters set to 0 just before,
+    launches ``d8_successor`` once and no other kernel; fdr and succ are
+    bitwise the plain version's on the same card tensor; the kernel's time
+    (CUDA events) and device time (torch.profiler) beside its bound and the
+    plain version's time.  Returns ({"d8_successor": launches a
+    ``derive_terrain``}, {"d8_successor": timing}), the timing on the
+    first mix."""
+    from benchmark import inputs as bench_inputs
+    from descriptools_tpu_torch.ops import terrain
+    from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
+    from descriptools_tpu_torch.ops.cuda import terrain as ct
+
+    t_phase = time.perf_counter()
+    launches = []
+    rows_out = []
+    for config_name, mix_name in TILE_MIXES:
+        with open(os.path.join(ROOT, "benchmark", "traffic", f"{mix_name}.json")) as f:
+            mix = json.load(f)
+        with open(os.path.join(ROOT, "benchmark", "configs", f"{config_name}.json")) as f:
+            config = json.load(f)
+        rows, cols = config["rows"], config["cols"]
+        torch.cuda.empty_cache()
+        dem = bench_inputs.make_input(mix, rows, cols, D8_SEED, dev)["dem"]
+        reset_launch_counters()
+        terrain.derive_terrain(dem)
+        torch.cuda.synchronize()
+        counted = launch_counters()
+        if counted != {**dict.fromkeys(counted, 0), "d8_successor": 1}:
+            raise AssertionError(f"derive_terrain on the {mix_name} DEM: launches {counted}, not one "
+                                 f"d8_successor and no other kernel")
+        launches.append(counted["d8_successor"])
+        kernel = lambda d=dem: ct.d8_successor(d)  # noqa: E731
+        plain = lambda d=dem: ct.d8_successor_plain(d)  # noqa: E731
+        got, want = kernel(), plain()
+        check_bitwise(f"d8_successor {mix_name} fdr vs d8_successor_plain", got[0], want[0])
+        check_bitwise(f"d8_successor {mix_name} succ vs d8_successor_plain", got[1], want[1])
+        del got, want
+        traced = [ms for name, ms in device_kernels_ms(kernel).items() if "d8_kernel" in name]
+        shown = f"{traced[0]:.4f}" if len(traced) == 1 else f"not traced ({len(traced)} kernels)"
+        bound = dem.numel() * (dem.element_size() + 4 + 4) / HBM_BYTES_PER_MS
+        rows_out.append(dict(ms=median_ms(kernel), plain_ms=median_ms(plain, 3), bound_ms=bound,
+                             bound_by="bytes"))
+        print(f"time d8_successor {mix_name} {rows}x{cols} ({dem.dtype}, seed {D8_SEED}): kernel "
+              f"{rows_out[-1]['ms']:.4f} ms (device {shown}), plain {rows_out[-1]['plain_ms']:.3f} ms, bound "
+              f"{bound:.4f} ms ({dem.element_size() + 8} B a cell); fdr and succ bitwise; derive_terrain "
+              f"launches it {launches[-1]} time(s) and no other kernel  [{card}]")
+        del dem
+    errs["d8_successor"] = 0.0
+    torch.cuda.empty_cache()
+    print(f"d8 phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"d8_successor": launches[0]}, {"d8_successor": rows_out[0]}
+
+
 def bench_line(argv, engine, kernels, checked, card):
     """``bench_torch.py`` with ``argv`` as a user runs it, its line checked:
     every key of ``bench.py``'s line, ``engine``, each of ``kernels``
@@ -2805,6 +2893,9 @@ def main():
     float_launches, float_times = phase_float_dem(dev, card, errs)
     launches.update(float_launches)
     times.update(float_times)
+    d8_launches, d8_times = phase_d8(dev, card, errs)
+    launches.update(d8_launches)
+    times.update(d8_times)
     phase_bench(card, hand_small, basin["flood"])
     # No single PyTorch call computes any of these functions: library_ms null.
     kernels = [
@@ -2844,6 +2935,19 @@ def main_float_dem():
                                        **times["cutoff_count"], library_ms=None)]}))
 
 
+def main_d8():
+    """``--d8``: the device phase and the D8 phase alone (``phase_d8``),
+    with the D8 kernel's row."""
+    phase_device()
+    dev, card = torch.device("cuda", 0), card_line()
+    errs = {"d8_successor": 0.0}
+    launches, times = phase_d8(dev, card, errs)
+    print(card)
+    print(json.dumps({"kernels": [dict(name="d8_successor", route="cuda", **KERNELS["d8_successor"],
+                                       launches=launches["d8_successor"], max_abs_err=errs["d8_successor"],
+                                       **times["d8_successor"], library_ms=None)]}))
+
+
 def main_link_probes():
     """``--link-probes``: the host link's probes alone, on phase 4's grid
     (``upload_overlap``, ``copy_overlap``); no kernel is checked."""
@@ -2867,5 +2971,7 @@ if __name__ == "__main__":
         main_long_drainage()
     elif sys.argv[1:] == ["--float-dem"]:
         main_float_dem()
+    elif sys.argv[1:] == ["--d8"]:
+        main_d8()
     else:
         main()

@@ -25,13 +25,10 @@
 // as it is, for bitwise rasters), and its own staging and indexing.
 // Design, to spend as few instructions as possible outside that tail:
 // - a block of 32 x 8 threads stages a 32-column x 32-row tile and its
-//   one-cell halo in shared memory: warp y reads halo rows y, y + 8, ...,
-//   one lane a column, coalesced; a block whose halo lies in the source
-//   reads without a test, a block at its edge calls stage_edge_halo,
-//   which writes NoData where the source holds no cell.  The compute has
-//   no bounds test per neighbour and no integer division; each thread then
-//   takes 4 cells down its column, and a warp stores each raster along a
-//   row, coalesced;
+//   one-cell halo in shared memory (tile.cuh's stage_tile), NoData where
+//   the source holds no cell.  The compute has no bounds test per
+//   neighbour and no integer division; each thread then takes 4 cells down
+//   its column, and a warp stores each raster along a row, coalesced;
 // - slope in two IEEE divisions instead of eight: for d > 0,
 //   fl(fl(zc - n) / d) does not increase with n (rounding is monotone), so
 //   the steepest gradient of the 4 cardinal (or the 4 diagonal) neighbours
@@ -49,17 +46,12 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "tile.cuh"
+
 namespace {
 
 constexpr float kNoData = -100.0f;
 constexpr float kEps = 0.01f;
-constexpr int kTileW = 32;                     // a tile's columns: one warp
-constexpr int kThreadRows = 8;                 // rows of threads in a block
-constexpr int kCells = 4;                      // cells a thread computes
-constexpr int kTileH = kThreadRows * kCells;   // a tile's rows
-constexpr int kHaloW = kTileW + 2;
-constexpr int kLoadRows = (kTileH + 2 + kThreadRows - 1) / kThreadRows;  // halo rows a warp reads
-constexpr int kThreads = kTileW * kThreadRows;
 
 __device__ __forceinline__ float fac_value(float f) { return f; }
 __device__ __forceinline__ float fac_value(int f) { return __int2float_rn(f); }
@@ -89,7 +81,7 @@ __device__ __forceinline__ void write_stage(int idx, float zc, float best, float
 // The source holds grid row i (from -kRing to rows + kRing - 1) and
 // column j likewise at src[(i + kRing) * pitch + j + kRing]: the whole grid
 // has no ring (cells beyond it read as NoData), the padded block its 1-cell
-// ring, read as given.
+// ring, read as given.  A source of tile.cuh's stage_tile.
 template <bool kPadded>
 struct Source {
   static constexpr int kRing = kPadded ? 1 : 0;
@@ -101,28 +93,9 @@ struct Source {
   __device__ bool holds(int i, int j) const {
     return i >= -kRing && i < rows + kRing && j >= -kRing && j < cols + kRing;
   }
+  __device__ float value(float v) const { return v; }
+  __device__ float fill() const { return kNoData; }
 };
-
-// Stage the halo of a block at the source's edge (see stencil_tile_kernel),
-// reading only the cells the source holds; the rest are NoData.  Out of
-// line: most blocks take the kernel's test-free path.
-template <bool kPadded>
-__device__ __noinline__ void stage_edge_halo(Source<kPadded> g, float* tile, int i0, int j0) {
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int jh = j0 - 1 + tx;
-#pragma unroll
-  for (int s = 0; s < kLoadRows; ++s) {
-    const int i = i0 - 1 + ty + s * kThreadRows;
-    tile[(ty + s * kThreadRows) * kHaloW + tx] = g.holds(i, jh) ? g.src[g.at(i, jh)] : kNoData;
-  }
-  const int tid = ty * kTileW + tx;
-  if (tid < 2 * (kTileH + 2)) {
-    const int i = i0 - 1 + (tid >> 1);
-    const int j = j0 - 1 + kTileW + (tid & 1);
-    tile[(tid >> 1) * kHaloW + kTileW + (tid & 1)] = g.holds(i, j) ? g.src[g.at(i, j)] : kNoData;
-  }
-}
 
 // fac and the outputs: rows x cols.  d_card, d_diag: the slope's divisors
 // of the cardinal and the diagonal neighbours.
@@ -133,29 +106,12 @@ __global__ void __launch_bounds__(kThreads)
                         float* __restrict__ twi, float* __restrict__ mod_twi, int rows,
                         int cols, float d_card, float d_diag, float px2, float n_topo) {
   const Source<kPadded> g(src, rows, cols);
-  __shared__ float tile[kLoadRows * kThreadRows * kHaloW];
+  __shared__ float tile[kTileFloats];
   const int i0 = blockIdx.y * kTileH;
   const int j0 = blockIdx.x * kTileW;
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
-  // Stage the tile and its halo: warp ty reads halo rows ty, ty + 8, ...
-  // (rows 34-39 are read and not used), lane tx halo column tx; threads
-  // 0-67 then read columns 32 and 33 of the 34 rows.  A block whose halo
-  // lies wholly in the source reads without a test.
-  if (g.holds(i0 - 1, j0 - 1) && g.holds(i0 - 2 + kLoadRows * kThreadRows, j0 + kTileW)) {
-    const float* p = src + g.at(i0 - 1 + ty, j0 - 1 + tx);
-#pragma unroll
-    for (int s = 0; s < kLoadRows; ++s) {
-      tile[(ty + s * kThreadRows) * kHaloW + tx] = p[s * kThreadRows * g.pitch];
-    }
-    const int tid = ty * kTileW + tx;
-    if (tid < 2 * (kTileH + 2)) {
-      tile[(tid >> 1) * kHaloW + kTileW + (tid & 1)] =
-          src[g.at(i0 - 1 + (tid >> 1), j0 - 1 + kTileW + (tid & 1))];
-    }
-  } else {
-    stage_edge_halo(g, tile, i0, j0);
-  }
+  stage_tile(g, tile, i0, j0);
   __syncthreads();
   const int j = j0 + tx;
   if (j >= cols) return;

@@ -72,6 +72,16 @@ def successor(fdr, rows, cols, row0=0, col0=0, grid_rows=None, grid_cols=None):
     return succ, step, valid & in_global, valid
 
 
+def sink_successor(fdr):
+    """int32 (rows, cols): each cell's flat D8 successor ``ty * cols + tx``
+    (:func:`successor`), ``rows * cols`` (a sink) where its code is not a D8
+    code or its step leaves the grid: the form the accumulation's rounds
+    jump (``ops.terrain.flow_accumulation``)."""
+    rows, cols = fdr.shape
+    succ, _, in_bounds, valid = successor(fdr, rows, cols)
+    return torch.where(in_bounds & valid, succ, rows * cols)
+
+
 def d8_flow_direction(dem, nodata=-100):
     """ESRI D8 flow-direction raster (int32) of a DEM, on the DEM's device.
 

@@ -8,7 +8,7 @@ built or loaded at import: ``build`` compiles ``csrc/*.cu`` at first launch.
 
 
 def _wrappers():
-    from descriptools_tpu_torch.ops.cuda import classify, stencil, walk
+    from descriptools_tpu_torch.ops.cuda import classify, stencil, terrain, walk
 
     return {
         "stencil": stencil.stencil,
@@ -19,6 +19,7 @@ def _wrappers():
         "downslope_walk_tracked": walk.downslope_walk_tracked,
         "flow_walk_blocked": walk.flow_walk_blocked,
         "cutoff_count": classify.cutoff_count,
+        "d8_successor": terrain.d8_successor,
     }
 
 

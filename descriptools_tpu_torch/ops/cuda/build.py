@@ -79,6 +79,9 @@ SIGNATURES = {
     # cuts (float*, host), k, over, counts (2k + 1 uint64, zeroed), SMs,
     # stream
     "launch_cutoff_count": [_VP, _VP, _VP, ctypes.c_longlong, ctypes.POINTER(_F), _I, _I, _VP, _I, _VP],
+    # terrain's D8: dem, dem type (0 float32, 1 int32, 2 int16), fdr, succ,
+    # rows, cols, nodata, the diagonal step, stream
+    "launch_d8": [_VP, _I, _VP, _VP, _I, _I, _F, _F, _VP],
 }
 
 

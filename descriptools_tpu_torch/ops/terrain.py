@@ -24,7 +24,8 @@ card; PERF.md records that form's time.)
 import torch
 
 from descriptools_tpu_torch.constants import NODATA
-from descriptools_tpu_torch.d8 import d8_flow_direction, successor
+from descriptools_tpu_torch.d8 import sink_successor
+from descriptools_tpu_torch.ops.cuda.terrain import d8_successor
 from descriptools_tpu_torch.utils import timing
 
 
@@ -35,15 +36,18 @@ def _levels(max_path):
     return k
 
 
-def flow_accumulation(fdr, max_path=None, stats=None):
+def flow_accumulation(fdr, max_path=None, stats=None, succ=None):
     """Strict upstream-cell count per cell (int32), on fdr's device.
 
     ``max_path`` bounds the longest resolvable drainage path (log2 levels
     of doubling); the default (None) is rows*cols, the bound for any
     acyclic D8 field.  Cells on flow cycles accumulate lap-multiplied
-    counts, as in JAX.  ``stats`` (a dict, filled in place) gets
-    ``rounds``, the doubling rounds run, and ``live``, the cells still
-    live entering each round.  Counters of the open span
+    counts, as in JAX.  ``succ``, where given, is fdr's
+    ``d8.sink_successor`` (int32, contiguous; as ``d8_successor`` gives
+    it), and fdr is not decoded again; the rounds jump it in place, so it
+    is overwritten.  ``stats`` (a dict, filled in place) gets ``rounds``,
+    the doubling rounds run, and ``live``, the cells still live entering
+    each round.  Counters of the open span
     (``utils.timing``): ``rounds``, ``live_cells`` (the sum of ``live``) and
     ``host_reads``, 1 + 1 a round: the live list's length, read on the host
     once to start and once a round.
@@ -51,8 +55,7 @@ def flow_accumulation(fdr, max_path=None, stats=None):
     rows, cols = fdr.shape
     n = rows * cols
     levels = _levels(n if max_path is None else max_path)
-    succ, _, in_bounds, valid = successor(fdr, rows, cols)
-    succ = torch.where(in_bounds & valid, succ, n).reshape(-1)
+    succ = (sink_successor(fdr) if succ is None else succ).view(-1)
     dev = succ.device
     f = torch.zeros(n, dtype=torch.int32, device=dev)
     stats = {} if stats is None else stats
@@ -80,13 +83,16 @@ def flow_accumulation(fdr, max_path=None, stats=None):
 def derive_terrain(dem, nodata=NODATA, max_path=None, stats=None):
     """(fdr, fac) derived from a DEM: steepest-descent D8 + accumulation,
     fac NoData where the DEM is.  ``stats`` as for ``flow_accumulation``.
-    Spans (``utils.timing``): ``terrain`` and, inside it, ``terrain.d8``
-    and ``terrain.accumulation`` (with the NoData mask; counters as for
+    D8 gives each cell's successor too (``ops.cuda.terrain.d8_successor``:
+    one kernel on the card), and the accumulation takes it.  Spans
+    (``utils.timing``): ``terrain`` and, inside it, ``terrain.d8``
+    (counter ``fused``: 1 a launch of the kernel) and
+    ``terrain.accumulation`` (with the NoData mask; counters as for
     ``flow_accumulation``)."""
     with timing.span("terrain"):
         with timing.span("terrain.d8"):
-            fdr = d8_flow_direction(dem, nodata=nodata)
+            fdr, succ = d8_successor(dem.contiguous(), nodata=nodata)
         with timing.span("terrain.accumulation"):
-            fac = flow_accumulation(fdr, max_path=max_path, stats=stats)
+            fac = flow_accumulation(fdr, max_path=max_path, stats=stats, succ=succ)
             fac = torch.where(dem == nodata, nodata, fac)
     return fdr, fac

@@ -57,6 +57,41 @@ def d8_from_dem(dem, nodata=NODATA):
     return np.where(dem == nodata, 0, code).astype(np.uint8)
 
 
+def d8_ties(rows, cols):
+    """float32 DEM of 3 x 3 blocks, cropped to rows x cols, that ties D8's
+    drops in every ESRI position.  Each block's centre is 0; block p (in
+    row-major order, mod 9) gives its neighbours at ESRI positions p to 7 a
+    drop of exactly 1 (a cardinal neighbour at -1, a diagonal one at
+    -float32(sqrt 2)) and those before p a drop of 0.5, so the first of the
+    equal drops, position p, wins; block 8 is flat (code 0)."""
+    s = np.float32(D8_STEP[1])
+    out = np.zeros((rows + 2, cols + 2), np.float32)
+    blocks = ((rows + 2) // 3, (cols + 2) // 3)
+    for b in range(blocks[0] * blocks[1]):
+        y, x = 3 * (b // blocks[1]) + 1, 3 * (b % blocks[1]) + 1
+        p = b % 9
+        for k, (dy, dx) in enumerate(zip(D8_DY, D8_DX)):
+            if p < 8:
+                unit = s if k % 2 else np.float32(1)
+                out[y + dy, x + dx] = -unit if k >= p else np.float32(-0.5) * unit
+    return out[:rows, :cols]
+
+
+def d8_division_pin():
+    """3 x 3 float32 DEM whose centre's SE drop fl(d / sqrt 2) equals its S
+    drop q, where d * fl(1 / sqrt 2) rounds below q: an IEEE division picks
+    SE (code 2), a multiplication by the reciprocal S (code 4).  The other
+    neighbours lie above the centre."""
+    d = np.float32(1.1156934)
+    q = d / np.float32(D8_STEP[1])
+    assert d * (np.float32(1) / np.float32(D8_STEP[1])) < q
+    dem = np.full((3, 3), 10, np.float32)
+    dem[1, 1] = 0
+    dem[2, 2] = -d
+    dem[2, 1] = -q
+    return dem
+
+
 def _hash01(gy, gx, cols, salt):
     """Deterministic per-cell uniform in [0, 1): splitmix64 finalizer of the
     global flat index.  Pure elementwise — any window of any shape yields

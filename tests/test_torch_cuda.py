@@ -19,7 +19,13 @@ from descriptools_tpu_torch.ops import flow
 from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
 from descriptools_tpu_torch.ops.cuda import stencil as st
 from descriptools_tpu_torch.ops.cuda import walk
-from descriptools_tpu_torch.utils.synthetic import adversarial_dem, downslope_cases, windowed_basin
+from descriptools_tpu_torch.utils.synthetic import (
+    adversarial_dem,
+    d8_division_pin,
+    d8_ties,
+    downslope_cases,
+    windowed_basin,
+)
 # The module: the package binds ops.downslope to the function of that name.
 down = importlib.import_module("descriptools_tpu_torch.ops.downslope")
 
@@ -97,7 +103,7 @@ def test_suite_runs_every_kernel_and_matches_plain(dev, basin):
     assert launch_counters() == dict(
         stencil=1, downslope_walk=1, flow_walk=1,
         stencil_padded=0, absorbing_walk=0, downslope_walk_tracked=0, flow_walk_blocked=0,
-        cutoff_count=0,
+        cutoff_count=0, d8_successor=0,
     )
     plain = pipeline.descriptor_suite(*inputs, pipeline.PipelineConfig(engine="torch"))
     for k in ("slope", "downslope", "fdist", "indices", "hand"):
@@ -413,6 +419,102 @@ def test_terrain_on_the_card_matches_the_cpu(dev):
     want = terrain.derive_terrain(torch.as_tensor(dem))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def _d8_dems(rng, rows, cols, integer):
+    """DEMs for the D8 kernel: small integers (plateaus, equal drops, pits),
+    the tie blocks of ``d8_ties`` (rounded where ``integer``) and a random
+    walk, with NoData cells scattered, so that -100 neighbours are many."""
+    dems = [rng.integers(0, 4, size=(rows, cols)).astype(np.float32), d8_ties(rows, cols),
+            np.cumsum(rng.normal(size=(rows, cols)), axis=1).astype(np.float32)]
+    out = []
+    for dem in dems:
+        dem = np.round(dem * 4) if integer else dem.copy()
+        dem[rng.random(dem.shape) < 0.05] = -100
+        out.append(dem)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32, torch.float32])
+def test_d8_kernel_matches_plain(dev, dtype):
+    """The D8 kernel bitwise ``d8_successor_plain`` (fdr and succ) on int16,
+    int32 and float32 DEMs: plateaus, equal drops won in every ESRI
+    position, NoData cells and -100 neighbours, at ragged shapes, 1 x N and
+    N x 1 (one tall enough that the kernel loops over its tile rows)."""
+    from descriptools_tpu_torch.ops.cuda import terrain as ct
+
+    rng = np.random.default_rng(31)
+    for rows, cols in ((1, 1), (1, 5), (5, 1), (3, 3), (31, 33), (33, 31), (67, 131), (257, 129),
+                       (1, 70001), (70001, 1), (65535 * 32 + 77, 1), (2178, 1534)):
+        for dem in _d8_dems(rng, rows, cols, dtype != torch.float32):
+            d = torch.as_tensor(dem, device=dev).to(dtype)
+            before = ct.d8_successor.launches
+            got = ct.d8_successor(d)
+            assert ct.d8_successor.launches == before + 1
+            want = ct.d8_successor_plain(d)
+            for g, w, name in zip(got, want, ("fdr", "succ")):
+                assert g.dtype == w.dtype == torch.int32 and g.is_cuda
+                assert torch.equal(g, w), (rows, cols, name)
+    # The ties are won where d8_ties places them, and the division is IEEE:
+    # a multiplication by the reciprocal of sqrt 2 picks S here, not SE.
+    ties = torch.as_tensor(d8_ties(30, 30), device=dev)
+    centres = ct.d8_successor(ties)[0][1::3, 1::3].reshape(-1).cpu()
+    assert centres.tolist() == [[1, 2, 4, 8, 16, 32, 64, 128, 0][b % 9] for b in range(100)]
+    pin = ct.d8_successor(torch.as_tensor(d8_division_pin(), device=dev))
+    assert int(pin[0][1, 1]) == 2 and int(pin[1][1, 1]) == 2 * 3 + 2
+
+
+def test_d8_wrapper_refuses_wrong_shape_and_strides(dev):
+    from descriptools_tpu_torch.ops.cuda import terrain as ct
+
+    z = torch.zeros((6, 7), device=dev)
+    for bad in (z.reshape(-1), z.reshape(1, 6, 7)):
+        with pytest.raises(ValueError, match="2-D"):
+            ct.d8_successor(bad)
+    with pytest.raises(ValueError, match="contiguous"):
+        ct.d8_successor(z.t())
+    with pytest.raises(ValueError, match="contiguous"):
+        ct.d8_successor(z.to(torch.int16)[:, ::2])
+    fdr, succ = ct.d8_successor(z.double())  # another dtype: cast to float32 first
+    assert torch.equal(fdr, torch.zeros_like(fdr)) and torch.equal(succ, torch.full_like(succ, 42))
+
+
+def _stage_activities(path, stage):
+    """Names of the device activities launched while the program span
+    ``stage`` was open, from a Chrome trace of torch.profiler."""
+    import json
+
+    events = [e for e in json.load(open(path))["traceEvents"] if e.get("ph") == "X"]
+    (span,) = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("cat") == "user_annotation" and e["name"] == "dt." + stage]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})
+                and span[0] <= e["ts"] <= span[1]}
+    return [e["name"] for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and e.get("args", {}).get("correlation") in launched]
+
+
+def test_derive_terrain_launches_one_d8_kernel(dev, tmp_path):
+    """``terrain.d8`` on the card is one launch of the D8 kernel and no
+    PyTorch ``where``; ``launch_counters`` and the span's ``fused`` count it."""
+    from descriptools_tpu_torch.ops import terrain
+    from descriptools_tpu_torch.utils import timing
+    from descriptools_tpu_torch.utils.synthetic import synthetic_dem
+
+    dem = torch.as_tensor(synthetic_dem(300, 257, seed=4).astype(np.int32), device=dev)
+    terrain.derive_terrain(dem)  # warm: the build and the first launch
+    torch.cuda.synchronize()
+    reset_launch_counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with timing.recording() as rec:
+            terrain.derive_terrain(dem)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    names = _stage_activities(tmp_path / "trace.json", "terrain.d8")
+    assert len(names) == 1 and "d8_kernel" in names[0], names
+    assert launch_counters()["d8_successor"] == 1
+    assert {s.name: s.counters for s in rec.spans}["terrain.d8"] == {"fused": 1}
 
 
 def test_calibration_on_the_card_matches_the_host(dev, basin):
