@@ -93,7 +93,7 @@ sys.path.insert(0, ROOT)
 
 import config5_torch  # noqa: E402
 from config5_torch import card_line  # noqa: E402
-from descriptools_tpu_torch import pipeline, tiled  # noqa: E402
+from descriptools_tpu_torch import pipeline, placement, tiled  # noqa: E402
 from descriptools_tpu_torch.ops.cuda import launch_counters  # noqa: E402
 from descriptools_tpu_torch.utils import parity, provenance  # noqa: E402
 
@@ -216,7 +216,7 @@ def parser():
     src.add_argument("--checkpointed", type=int, metavar="N",
                      help="pipeline.run_suite_checkpointed on windowed_basin(N, N, seed=0), held to the in-core suite")
     ap.add_argument("--tile", type=int, metavar="T", help=f"--tiled's tile side (default {DEFAULT_TILE})")
-    ap.add_argument("--engine", choices=pipeline.ENGINES,
+    ap.add_argument("--engine", choices=placement.ENGINES,
                     help="the in-core modes' engine (default auto: cuda on the card); cuda_blocked runs the fold")
     return ap
 

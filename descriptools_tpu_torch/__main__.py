@@ -4,7 +4,7 @@ Counterpart of ``python -m descriptools_tpu``: read rasters, compute every
 descriptor, calibrate a flood threshold on HAND, write the classified map,
 as ``python -m descriptools_tpu_torch <basin_dir> [-o out.tif]``.  It takes
 the same arguments, plus ``--device`` (default ``cuda``; without a CUDA
-device it raises) and ``--engine`` (one of ``pipeline.ENGINES``), and prints
+device it raises) and ``--engine`` (one of ``placement.ENGINES``), and prints
 the same one-line JSON.
 
 The basin directory must follow the reference layout:
@@ -18,7 +18,7 @@ import time
 
 
 def main(argv=None):
-    from descriptools_tpu_torch.pipeline import ENGINES
+    from descriptools_tpu_torch.placement import ENGINES
 
     ap = argparse.ArgumentParser(prog="descriptools_tpu_torch")
     ap.add_argument("basin", help="basin directory (reference Example layout)")

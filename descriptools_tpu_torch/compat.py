@@ -31,7 +31,7 @@ available.  On the card, ``downsloper`` runs the downslope kernel and
 as the reference and the JAX ``compat`` run them, and take no device.
 
 Rasters are computed in the dtypes the JAX ``compat`` computes them in
-(64-bit inputs demoted to 32 bits, ``pipeline.as_jax_dtypes``), so the
+(64-bit inputs demoted to 32 bits, ``placement.as_jax_dtypes``), so the
 values are JAX's; HAND is returned in the dem's numpy dtype, where JAX's
 is 32-bit (a documented departure: ``compat`` keeps numpy's dtypes).
 
@@ -48,7 +48,7 @@ from descriptools_tpu_torch import evaluation as _ev
 from descriptools_tpu_torch import oracle as _oracle
 from descriptools_tpu_torch import ops as _ops
 from descriptools_tpu_torch.constants import NODATA
-from descriptools_tpu_torch.pipeline import as_jax_dtypes, check_device
+from descriptools_tpu_torch.placement import as_jax_dtypes, check_device
 
 
 def _t(a, device, dtype=None):

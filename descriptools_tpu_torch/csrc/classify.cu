@@ -1,20 +1,20 @@
-// The calibration's counting pass over float HAND.
+// The calibration's counting pass over HAND, integer or float.
 //
 // cutoff_count_kernel (entry launch_cutoff_count) has no TPU counterpart:
 // the JAX package calibrates integer HAND alone (its joint histogram) and
-// sends float HAND to the host.  Here a float HAND raster is calibrated on
-// the card, exactly: parallel/classify.py::_float_cutoff turns each
-// threshold th of a search stage into the float32 cutoff at which the
-// oracle's float64 predicate fl64((h - mn) / (mx - mn)) <= th flips (>= th
-// under "over"), so "hand <= cut" in float32 is that predicate, and this
-// kernel counts, for all of one stage's cutoffs in one pass, the valid
-// cells hit by each cutoff (pred) and the valid flooded ones among them
-// (tp), and the flooded cells of the whole raster (for FN).
+// sends float HAND to the host.  Here either is calibrated on the card,
+// exactly: parallel/classify.py::_float_cutoffs (_integer_cutoff on
+// integer HAND) turns each threshold th of a search stage into the float32
+// cutoff at which the oracle's float64 predicate fl64((h - mn) / (mx - mn))
+// <= th flips (>= th under "over"), so "hand <= cut" in float32 is that
+// predicate, and this kernel counts, for all of one stage's cutoffs in one
+// pass, the valid cells hit by each cutoff (pred) and the valid flooded
+// ones among them (tp), and the flooded cells of the whole raster (for FN).
 //
 // Validity and the flooded bit are those of parallel/classify.py:
 // _valid_mask (not NoData, and not equal to hand[0, 0] where that corner
-// is data: descriptools' probe quirk) and _bench01 (flood 1 or 2).  An
-// invalid cell reads as NaN, which no cutoff hits.
+// is data: descriptools' probe quirk) and _block_classmap (flood 1 or 2).
+// An invalid cell reads as NaN, which no cutoff hits.
 //
 //   Bound: 8 B a cell (hand f32, flood int32), read once a pass.
 //   The design:

@@ -82,6 +82,15 @@ def sink_successor(fdr):
     return torch.where(in_bounds & valid, succ, rows * cols)
 
 
+def doubling_rounds(n):
+    """Rounds of successor doubling that cover paths of ``n`` steps: the
+    least k with 2^k >= n (the flow walks' and the accumulation's cap)."""
+    k = 0
+    while (1 << k) < n:
+        k += 1
+    return k
+
+
 def d8_flow_direction(dem, nodata=-100):
     """ESRI D8 flow-direction raster (int32) of a DEM, on the DEM's device.
 

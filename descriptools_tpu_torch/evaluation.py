@@ -22,6 +22,7 @@ import torch
 
 from descriptools_tpu_torch import oracle
 from descriptools_tpu_torch.constants import NODATA
+from descriptools_tpu_torch.placement import check_device
 
 
 def _scalar(value, like):
@@ -156,8 +157,6 @@ def calibration(desc, bench, under="under", backend="numpy", *, device="cuda"):
     if backend != "torch":
         raise ValueError(f"unsupported calibration backend {backend!r}")
     if not isinstance(desc, torch.Tensor):
-        from descriptools_tpu_torch.pipeline import check_device
-
         desc = torch.as_tensor(np.asarray(desc), device=check_device(device))
     bench = torch.as_tensor(bench, device=desc.device)
 

@@ -35,7 +35,8 @@ def cutoff_count_plain(hand, flood, h00, cuts, under="under"):
     flooded cells among them, then the flooded cells of the raster.  A cell
     is valid where HAND is not NoData and, where ``h00`` (the raster's
     corner) is data, not equal to it; flooded where flood is 1 or 2
-    (``parallel.classify._valid_mask``, ``_bench01``)."""
+    (``parallel.classify._valid_mask``; the benchmark's normalisation,
+    evaluation.py:149-150)."""
     cuts = _check_cuts(cuts)
     k = cuts.size
     h = hand.reshape(-1).to(torch.float32)

@@ -46,7 +46,8 @@ import numpy as np
 import torch
 
 from descriptools_tpu_torch.constants import D8_STEP, FLOW_MAX_STEPS, NODATA
-from descriptools_tpu_torch.d8 import pull8, successor
+from descriptools_tpu_torch.d8 import doubling_rounds, pull8, successor
+from descriptools_tpu_torch.placement import as_jax_dtypes, resolve_engine
 from descriptools_tpu_torch.utils import timing
 
 UNRES = -(1 << 31)  # unresolved-walk code (INT32_MIN)
@@ -99,9 +100,7 @@ def doubling_walk(fdr_eff, code0, max_steps):
     nxt = torch.where(absorbing, torch.arange(rows * cols, device=succ.device), succ)
     a = ((step == 1.0) & ~absorbing).to(torch.int32)
     b = ((step > 1.0) & ~absorbing).to(torch.int32)
-    rounds = 0
-    while (1 << rounds) < max_steps:
-        rounds += 1
+    rounds = doubling_rounds(max_steps)
     for _ in range(rounds):
         a = a + a[nxt]
         b = b + b[nxt]
@@ -179,16 +178,9 @@ def _i2f(x):
     return x.view(torch.float32)
 
 
-def _doubling_rounds(max_steps):
-    k = 0
-    while (1 << k) < max_steps:
-        k += 1
-    return k
-
-
 def _flow_doubling(fdr, river, px, max_steps):
     """Plain whole-grid successor doubling of f32 distances (the JAX
-    package's cross-check engine): ``_doubling_rounds(max_steps)`` rounds of
+    package's cross-check engine): ``doubling_rounds(max_steps)`` rounds of
     ``(s[s], d + d[s], st + st[s])``."""
     rows, cols = fdr.shape
     succ, step, absorbing, _, is_river = flow_states(fdr, river, rows, cols)
@@ -197,7 +189,7 @@ def _flow_doubling(fdr, river, px, max_steps):
     s = torch.where(absorbing, self_idx, succ).long()
     d = torch.where(absorbing, 0.0, step * float(np.float32(px)))
     st = torch.where(absorbing, 0, 1).to(torch.int32)
-    for _ in range(_doubling_rounds(max_steps)):
+    for _ in range(doubling_rounds(max_steps)):
         s, d, st = s[s], d + d[s], st + st[s]
     landed = is_river[s] & (st <= max_steps)
     fdist = torch.where(landed, d, float(NODATA))
@@ -289,7 +281,7 @@ def resolve_absorbing_walk(fdr, absorbing, stepd, succ, max_steps, cap, tag0=Non
     e_dist = torch.where(absorbed0, 0.0, sub_step)
     e_steps = torch.where(absorbed0, 0.0, 1.0)
     pack = torch.stack([s_succ, _f2i(e_dist), _f2i(e_steps)], dim=-1)
-    for _ in range(_doubling_rounds(max_steps)):
+    for _ in range(doubling_rounds(max_steps)):
         nxt = pack[pack[:, 0].long()]  # one packed gather a round
         pack = torch.stack(
             [nxt[:, 0], _f2i(_i2f(pack[:, 1]) + _i2f(nxt[:, 1])), _f2i(_i2f(pack[:, 2]) + _i2f(nxt[:, 2]))],
@@ -377,9 +369,7 @@ def hand_calculator(dem, indices, nodata=NODATA):
     """HAND = clip(dem - dem.flat[indices], 0); NoData masked.
 
     Integer-exact when dem is integer: pass dem as an int dtype.  A 64-bit
-    dem is demoted as JAX demotes it (``pipeline.as_jax_dtypes``)."""
-    from descriptools_tpu_torch.pipeline import as_jax_dtypes
-
+    dem is demoted as JAX demotes it (``placement.as_jax_dtypes``)."""
     dem, indices = as_jax_dtypes(dem, indices)
     flat = dem.reshape(-1)
     idx = indices.reshape(-1)
@@ -396,7 +386,7 @@ def hand_and_river_fac(dem, fac, indices, nodata=NODATA):
     As in the JAX version, dem and fac ride the gather as float32 (exact
     below 2^24) and HAND keeps the dem's dtype; the ``fac.flat[0]``
     fallback quirk for unresolved cells is kept.  Callers pass dem in
-    JAX's dtype (``pipeline.as_jax_dtypes``): a float64 dem would take the
+    JAX's dtype (``placement.as_jax_dtypes``): a float64 dem would take the
     gathered value rounded and its own unrounded."""
     flat_d = dem.reshape(-1)
     flat_f = fac.reshape(-1)
@@ -416,12 +406,10 @@ def flow_hand_index(dem, fdr, river, px, max_steps=FLOW_MAX_STEPS, engine="auto"
     """Flow distance, river indices and HAND of a whole grid: the
     reference's public ``flow_hand_index`` on tensors.
 
-    ``engine`` as ``pipeline.resolve_engine`` takes it: ``"auto"`` runs
+    ``engine`` as ``placement.resolve_engine`` takes it: ``"auto"`` runs
     the jump-walk kernel on CUDA tensors and the plain engine elsewhere.
     Pass dem as an integer dtype for integer-exact HAND.  64-bit rasters
-    are demoted as JAX demotes them (``pipeline.as_jax_dtypes``)."""
-    from descriptools_tpu_torch.pipeline import as_jax_dtypes, resolve_engine
-
+    are demoted as JAX demotes them (``placement.as_jax_dtypes``)."""
     engine = resolve_engine(engine, fdr.device)
     fdr, river = as_jax_dtypes(fdr, river)  # hand_calculator demotes dem
     fdist, indices = flow_distance_index(fdr, river, px, max_steps=max_steps, engine=engine)

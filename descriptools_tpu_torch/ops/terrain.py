@@ -9,8 +9,8 @@ that terminals chain to and that is zeroed after every round:
 
 The adds are ``index_add_`` on int32, exact in any order, so every result
 is bitwise the JAX one, truncated accumulations included: the loop keeps
-JAX's cap of ``_levels(max_path)`` rounds and its exit once every cell's
-successor is the sink, read on the host once a round.
+JAX's cap of ``d8.doubling_rounds(max_path)`` rounds and its exit once
+every cell's successor is the sink, read on the host once a round.
 
 A cell whose successor is the sink adds only to the sink, which is
 zeroed, and keeps the sink for good.  So here the sink's adds are dropped
@@ -24,16 +24,9 @@ card; PERF.md records that form's time.)
 import torch
 
 from descriptools_tpu_torch.constants import NODATA
-from descriptools_tpu_torch.d8 import sink_successor
+from descriptools_tpu_torch.d8 import doubling_rounds, sink_successor
 from descriptools_tpu_torch.ops.cuda.terrain import d8_successor
 from descriptools_tpu_torch.utils import timing
-
-
-def _levels(max_path):
-    k = 0
-    while (1 << k) < max_path:
-        k += 1
-    return k
 
 
 def flow_accumulation(fdr, max_path=None, stats=None, succ=None):
@@ -54,7 +47,7 @@ def flow_accumulation(fdr, max_path=None, stats=None, succ=None):
     """
     rows, cols = fdr.shape
     n = rows * cols
-    levels = _levels(n if max_path is None else max_path)
+    levels = doubling_rounds(n if max_path is None else max_path)
     succ = (sink_successor(fdr) if succ is None else succ).view(-1)
     dev = succ.device
     f = torch.zeros(n, dtype=torch.int32, device=dev)

@@ -15,25 +15,22 @@ that float64 path.  Here:
      float32 for one cutoff a threshold, found on the host by float64
      bisection:
        - integer HAND (an integer DEM): an integer cutoff
-         (``_integer_cutoff``), and ONE device pass builds the joint
-         histogram of (integer HAND value x flooded bit); every cutoff's
-         TP/FP/FN falls out of host prefix sums, so the whole
-         coarse-to-fine search costs one pass and selects the identical
-         threshold.  Value ranges wider than ``NBINS_MAX`` fall back to
-         one counting pass a search stage;
+         (``_integer_cutoff``), an exact float32 value within
+         ``_F32_EXACT``;
        - float HAND (a float DEM): a float32 cutoff (``_float_cutoffs``,
-         over the ordered float32 bit patterns), and one counting pass a
-         search stage (``ops.cuda.classify.cutoff_count``: a hand-written
-         kernel on the card), 5 passes and 5 host reads a search; the
-         final threshold's counts are its last stage's;
+         over the ordered float32 bit patterns);
+     either way one counting pass a search stage whose cutoffs are not
+     counted yet (``ops.cuda.classify.cutoff_count``: a hand-written
+     kernel on the card), at most 5 passes and 5 host reads a search; the
+     final threshold's counts are its last stage's;
   3. the class map (0 TN / 1 FP / 2 FN / 3 TP, evaluation.py:153-166),
      uint8, on the device.
 
 Each block reduction is a function of its own (``_block_*``): the mesh
 path reduces each over a rank's blocks and adds an all-reduce after it
-(MIN for the min and the second min, MAX for the max, SUM for the counts
-and histograms) and broadcasts the corner probe from block 0's rank; the
-host part (``_search``) is shared.
+(MIN for the min and the second min, MAX for the max, SUM for the counts)
+and broadcasts the corner probe from block 0's rank; the host part
+(``_search``) is shared.
 
 Spec: reference evaluation.py:5-211 via the oracle; binary_map's corner
 probe quirk (evaluation.py:111-112) is kept: when hand[0,0] is not NoData,
@@ -46,9 +43,9 @@ import torch
 from descriptools_tpu_torch.constants import NODATA
 from descriptools_tpu_torch.evaluation import _scalar, coarse_to_fine_search
 from descriptools_tpu_torch.ops.cuda.classify import cutoff_count
+from descriptools_tpu_torch.placement import check_device
 from descriptools_tpu_torch.utils import timing
 
-NBINS_MAX = 1 << 22  # widest HAND value range the one-pass histogram bins
 _F32_EXACT = 1 << 24  # integers above this are not exactly f32-representable
 _BIG = 3e38
 
@@ -75,27 +72,6 @@ def _valid_mask(hand_blk, h00):
     nd = hand_blk == NODATA
     probe_live = h00 != NODATA
     return ~nd & ~(probe_live & (hand_blk == h00))
-
-
-def _bench01(bench_blk):
-    """benchmark 1 -> flooded, NODATA -> dry (evaluation.py:149-150)."""
-    b = bench_blk.to(torch.int32)
-    return torch.where(b == 1, 2, torch.where(b == NODATA, 0, b)) == 2
-
-
-def _block_histogram(hand_blk, bench_blk, h00, lo, nbins):
-    """Per integer HAND value ``lo + i``: valid cells and valid & flooded
-    cells (int64, ``nbins`` each), and the flooded cells of the block.
-    One ``bincount`` of the joint key ``2 i + flooded``; invalid cells go
-    to a spare bin past the end."""
-    valid = _valid_mask(hand_blk, h00)
-    flooded = _bench01(bench_blk)
-    idx = (hand_blk - _scalar(lo, hand_blk)).to(torch.int32).clamp(0, nbins - 1)
-    key = torch.where(valid, 2 * idx + flooded.to(torch.int32), 2 * nbins)
-    joint = torch.bincount(key.reshape(-1), minlength=2 * nbins + 1)
-    timing.count("host_reads", 2)  # bincount reads its input's least and largest values
-    ht = joint[1 : 2 * nbins : 2]
-    return joint[0 : 2 * nbins : 2] + ht, ht, flooded.sum()
 
 
 def _hit(hand_blk, cut, under):
@@ -255,40 +231,12 @@ def _read(t):
     return t.cpu().numpy()
 
 
-def _histogram_counts(hv, ht, n_fl, lo, nbins, under):
-    """``counts_at(cuts)`` from the joint histogram: host prefix sums."""
-    cum_v = np.cumsum(_read(hv).astype(np.int64))
-    cum_t = np.cumsum(_read(ht).astype(np.int64))
-    n_fl = int(_read(n_fl))
-
-    def counts_at(cuts):
-        acc = np.empty((len(cuts), 3), np.int64)  # tp, fp, fn
-        for k, cut in enumerate(cuts):
-            i = int(cut) - lo
-            if under == "under":
-                tp, pred = (
-                    (0, 0) if i < 0
-                    else (int(cum_t[min(i, nbins - 1)]), int(cum_v[min(i, nbins - 1)]))
-                )
-            else:  # v >= cut
-                below = (0, 0) if i <= 0 else (
-                    int(cum_t[min(i, nbins) - 1]),
-                    int(cum_v[min(i, nbins) - 1]),
-                )
-                tp = int(cum_t[-1]) - below[0]
-                pred = int(cum_v[-1]) - below[1]
-            acc[k] = (tp, pred - tp, n_fl - tp)
-        return acc
-
-    return counts_at
-
-
 def _mesh_classify_flood(hand, flood, mesh, under, shape, crop):
     """The mesh path: each ``_block_*`` reduced over this rank's blocks,
     then one all-reduce (MIN for the min and, in a second round, the second
-    min; MAX for the max; SUM for the counts and histograms); ``hand[0,
-    0]`` broadcast from the rank that owns block 0.  The host part is the
-    one-device path's."""
+    min; MAX for the max; SUM for the counts, one a counting pass);
+    ``hand[0, 0]`` broadcast from the rank that owns block 0.  The host part
+    is the one-device path's."""
     import torch.distributed as dist
 
     from descriptools_tpu_torch.parallel.mesh import ShardedRaster, all_reduce, broadcast, crop_from_mesh
@@ -320,7 +268,7 @@ def _mesh_classify_flood(hand, flood, mesh, under, shape, crop):
                         dist.ReduceOp.SUM)
     block0 = hand_s.blocks[0][0, 0] if 0 in hand_s.blocks else torch.zeros((), device=dev)
     h00 = broadcast(mesh, block0, mesh.owner(0))
-    gmin, mn2, mx, nonint = torch.stack([gmin, mn2, mx, nonint.to(torch.float32)]).double().cpu().numpy()
+    mn2, mx, nonint = torch.stack([mn2, mx, nonint.to(torch.float32)]).double().cpu().numpy()
 
     def per_block(fn):
         """``fn(hand block, flood block)`` summed over this rank's blocks,
@@ -328,22 +276,14 @@ def _mesh_classify_flood(hand, flood, mesh, under, shape, crop):
         acc = sum(fn(hand_s.blocks[b], flood_s.blocks[b]) for b in mesh.blocks)
         return all_reduce(mesh, acc, dist.ReduceOp.SUM)
 
-    def histogram(lo, nbins):
-        def joint(h, f):
-            hv, ht, n_fl = _block_histogram(h, f, h00, lo, nbins)
-            return torch.cat([hv, ht, n_fl.reshape(1)])
-
-        j = per_block(joint)
-        return j[:nbins], j[nbins : 2 * nbins], j[2 * nbins]
-
     def counts(cuts):
         with timing.span("classify.count", passes=1, cuts=len(cuts)):
             c = per_block(lambda h, f: _block_cut_counts(h, f, h00, cuts, under))
             return _tp_fp_fn(_read(c), len(cuts))
 
-    th, correctness, fit, cut_i = _search(gmin, mn2, mx, nonint, under, histogram, counts)
+    th, correctness, fit, cut = _search(mn2, mx, nonint, under, counts)
     class_map = ShardedRaster(mesh, hand_s.shape, {
-        b: _block_classmap(hand_s.blocks[b], flood_s.blocks[b], h00, float(cut_i), under)
+        b: _block_classmap(hand_s.blocks[b], flood_s.blocks[b], h00, float(cut), under)
         for b in mesh.blocks
     })
     if crop:
@@ -367,38 +307,25 @@ def _stage_counts(counts):
     return counts_at
 
 
-def _search(gmin, mn2, mx, nonint, under, histogram, counts):
-    """The host part: the range checks, the cutoffs, and the coarse-to-fine
-    search over the joint histogram (integer HAND: ``histogram(lo, nbins)``
-    -> (hv, ht, n_fl)) or over one counting pass a search stage (float
-    HAND, or integer HAND above ``NBINS_MAX`` bins: ``counts(float32
-    cuts)`` -> (len(cuts), 3) TP, FP, FN).  Returns (threshold,
-    correctness, fit, cutoff)."""
+def _search(mn, mx, nonint, under, counts):
+    """The host part: the range checks, the cutoffs (integer HAND's or
+    float HAND's, by ``nonint``), and the coarse-to-fine search over one
+    counting pass a search stage (``counts(float32 cuts)`` -> (len(cuts),
+    3) TP, FP, FN).  Returns (threshold, correctness, fit, cutoff)."""
     # np.unique(hand)[1] / [-1] (pipeline.classify_flood): the smallest
     # value distinct from the global min, and the max.
-    mn = mn2
     if not np.isfinite(mn) or mx <= mn or (nonint == 0 and (abs(mn) > _F32_EXACT or mx > _F32_EXACT)):
         raise ValueError(f"degenerate HAND value range [{mn}, {mx}]")
 
     if nonint != 0:
         def cutoffs(ths):
             return _float_cutoffs(ths, mn, mx, under)
-
-        counts_at = _stage_counts(counts)
     else:
         def cutoffs(ths):
-            return np.array([_integer_cutoff(th, mn, mx, under) for th in ths])
+            # Exact float32 values: integer HAND lies within +-_F32_EXACT (checked above).
+            return np.array([_integer_cutoff(th, mn, mx, under) for th in ths], np.float32)
 
-        # Smallest real HAND value (NODATA is the min iff the raster has any).
-        lo = int(gmin if gmin != NODATA else mn2)
-        nbins = int(mx) - lo + 1
-        if nbins <= NBINS_MAX:
-            # One counting pass for the ENTIRE search: joint histogram + host
-            # prefix sums.
-            counts_at = _histogram_counts(*histogram(lo, nbins), lo, nbins, under)
-        else:
-            # Huge value ranges: one device counting pass per search stage.
-            counts_at = _stage_counts(counts)
+    counts_at = _stage_counts(counts)
 
     def fits_at(values, scale):
         c = counts_at(cutoffs([v / scale for v in values])).astype(np.float64)
@@ -432,17 +359,16 @@ def sharded_classify_flood(hand, flood, mesh=None, under="under", shape=None, cr
     ranks.  The class map stays a ``ShardedRaster`` with ``crop=False``,
     and is the cropped global map on every rank with ``crop=True``.
 
-    Integer HAND (an integer DEM: the reference example feeds int16) is
-    calibrated from one histogram pass; float HAND (a float DEM) from one
-    counting pass a search stage.  Both select the float64 path's
-    threshold exactly.
+    Integer HAND (an integer DEM: the reference example feeds int16) and
+    float HAND (a float DEM) are both calibrated from one counting pass a
+    search stage, and both select the float64 path's threshold exactly.
 
     Spans (``utils.timing``), on one device: ``classify`` and, inside it,
     ``classify.stats`` (the casts and the statistics' one host read),
-    ``classify.search`` (``_search``: the histogram pass or the counting
-    passes, and the host's search; ``float_cutoffs``, the float32
-    bisections it ran) with a ``classify.count`` span a counting pass
-    (``passes`` 1, ``cuts``, the cutoffs it counted) and ``classify.map``;
+    ``classify.search`` (``_search``: the counting passes and the host's
+    search; ``float_cutoffs``, the float32 bisections it ran) with a
+    ``classify.count`` span a counting pass (``passes`` 1, ``cuts``, the
+    cutoffs it counted) and ``classify.map``;
     each read of a device value on the host adds 1 to the open span's
     ``host_reads``.  Its scalars are filled on the device, so it makes no
     ``host_writes``.
@@ -456,8 +382,6 @@ def sharded_classify_flood(hand, flood, mesh=None, under="under", shape=None, cr
     with timing.span("classify"):
         with timing.span("classify.stats"):
             if not isinstance(hand, torch.Tensor):
-                from descriptools_tpu_torch.pipeline import check_device
-
                 hand = torch.as_tensor(np.asarray(hand), device=check_device(device))
             dev = hand.device
             hand_s = hand.to(torch.float32)
@@ -471,20 +395,16 @@ def sharded_classify_flood(hand, flood, mesh=None, under="under", shape=None, cr
             gmin, mx = _block_extrema(real)
             mn2 = _block_second_min(real, gmin)
             h00 = hand_s[0, 0]
-            stats = torch.stack([gmin, mn2, mx, _block_nonint(real).to(torch.float32)])
-            gmin, mn2, mx, nonint = _read(stats.double())
+            stats = torch.stack([mn2, mx, _block_nonint(real).to(torch.float32)])
+            mn2, mx, nonint = _read(stats.double())
         def counts(cuts):
             with timing.span("classify.count", passes=1, cuts=len(cuts)):
                 return _tp_fp_fn(_read(_block_cut_counts(hand_s, flood_s, h00, cuts, under)), len(cuts))
 
         with timing.span("classify.search"):
-            th, correctness, fit, cut_i = _search(
-                gmin, mn2, mx, nonint, under,
-                lambda lo, nbins: _block_histogram(hand_s, flood_s, h00, lo, nbins),
-                counts,
-            )
+            th, correctness, fit, cut = _search(mn2, mx, nonint, under, counts)
         with timing.span("classify.map"):
-            class_map = _block_classmap(hand_s, flood_s, h00, float(cut_i), under)
+            class_map = _block_classmap(hand_s, flood_s, h00, float(cut), under)
             if crop:
                 class_map = class_map[:rows, :cols]
     return th, correctness, fit, class_map

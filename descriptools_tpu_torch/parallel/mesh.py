@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from descriptools_tpu_torch.placement import check_device
+
 
 @dataclass(frozen=True)
 class Mesh:
@@ -123,8 +125,6 @@ def make_mesh(shape=None, device="cuda", group=None):
     computes on the current CUDA device (``multihost.initialize`` sets it
     to the local rank's) and raises where there is no card; ``"cpu"`` only
     when the caller asks."""
-    from descriptools_tpu_torch.pipeline import check_device
-
     device = check_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())

@@ -18,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 from descriptools_tpu_torch.parallel.mesh import ShardedRaster, make_mesh
+from descriptools_tpu_torch.placement import check_device
 
 
 def initialize(init_method=None, world_size=None, rank=None, backend=None, device="cuda"):
@@ -32,8 +33,6 @@ def initialize(init_method=None, world_size=None, rank=None, backend=None, devic
     ``device`` names) before the group starts."""
     if dist.is_initialized():
         return
-    from descriptools_tpu_torch.pipeline import check_device
-
     device = check_device(device)
     env = os.environ
     if world_size is None and "WORLD_SIZE" in env:

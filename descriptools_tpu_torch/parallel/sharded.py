@@ -37,7 +37,7 @@ from descriptools_tpu_torch.parallel.mesh import (
     crop_from_mesh,
     pad_to_mesh,
 )
-from descriptools_tpu_torch.pipeline import as_jax_dtypes, resolve_engine
+from descriptools_tpu_torch.placement import as_jax_dtypes, resolve_engine
 
 _RING_KEYS = ("status", "a", "b", "tgy", "tgx", "ridx", "rz", "rfac")
 _FLOAT_RING = ("rz", "rfac")  # carried as float32 bit views in the int32 record
@@ -57,7 +57,7 @@ def _staged(arr, mesh, fill, dtype=None):
     """A numpy raster padded and cut into this rank's blocks on
     ``mesh.device``; a ``ShardedRaster`` of this mesh passes through (cast
     to ``dtype``).  64-bit rasters are demoted as JAX demotes them
-    (``pipeline.as_jax_dtypes``)."""
+    (``placement.as_jax_dtypes``)."""
     if isinstance(arr, ShardedRaster):
         _check_mesh(arr, mesh)
         if dtype is None:
@@ -100,7 +100,7 @@ def _fac0(fac, fac0):
 
 
 def _engine(engine, mesh):
-    """``pipeline.resolve_engine`` for the mesh's device; the fold engines
+    """``placement.resolve_engine`` for the mesh's device; the fold engines
     are refused: the sharded fdist is formed from step counts through the
     ring."""
     engine = resolve_engine(engine, mesh.device)

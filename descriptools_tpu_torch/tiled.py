@@ -37,7 +37,7 @@ from descriptools_tpu_torch.ops.gfi import ln_hl_h as _ln_hl_h
 from descriptools_tpu_torch.ops.slope import slope_from_padded
 from descriptools_tpu_torch.ops.topo import modified_topographic_index, topographic_index
 from descriptools_tpu_torch.parallel import boundary
-from descriptools_tpu_torch.pipeline import as_jax_dtypes, resolve_engine
+from descriptools_tpu_torch.placement import as_jax_dtypes, resolve_engine
 
 
 def _tile_grid(shape, tile_rows, tile_cols):
@@ -126,7 +126,7 @@ def _global_indices(ix_t, C, cols):
 
 
 def _tile_engine(engine, device):
-    """``pipeline.resolve_engine``, refusing the fold engines: the tiled
+    """``placement.resolve_engine``, refusing the fold engines: the tiled
     fdist is formed from step counts carried through the ring."""
     engine = resolve_engine(engine, device)
     if engine.endswith("_blocked"):
@@ -145,7 +145,7 @@ def tiled_flow_hand(dem, fdr, river, fac, px, device, tile_rows=2048, tile_cols=
     Inputs are numpy rasters; returns numpy (fdist, indices, hand,
     river_fac).  Indices and HAND are bitwise the in-core suite's, and so is
     fdist (formed from integer step counts).  ``engine`` is one of
-    ``pipeline.ENGINES``: ``"auto"`` runs each tile's local walk in the
+    ``placement.ENGINES``: ``"auto"`` runs each tile's local walk in the
     absorbing-walk kernel on a CUDA device; the ``*_blocked`` engines are
     refused.
     """
@@ -235,7 +235,7 @@ class _Link:
     def up(self, arr):
         """numpy -> tensor on the device (on the calling thread's stream),
         64-bit windows demoted on the host as JAX demotes them
-        (``pipeline.as_jax_dtypes``)."""
+        (``placement.as_jax_dtypes``)."""
         t0 = time.perf_counter()
         arr = np.ascontiguousarray(as_jax_dtypes(arr)[0])
         t = torch.from_numpy(arr).to(self.device)

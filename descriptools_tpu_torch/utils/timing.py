@@ -29,6 +29,8 @@ import time
 
 import torch
 
+from descriptools_tpu_torch.placement import check_device
+
 TRACE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                          "build", "torch_trace")
 
@@ -45,8 +47,6 @@ def timeit(fn, *args, warmup=1, iters=3, device="cuda", **kwargs):
     """Median seconds of ``fn(*args, **kwargs)`` after ``warmup`` calls:
     CUDA events when ``device`` is a CUDA device (raises where there is no
     card), else the host clock up to a ``sync`` of any queued CUDA work."""
-    from descriptools_tpu_torch.pipeline import check_device
-
     on_cuda = check_device(device).type == "cuda"
     for _ in range(warmup):
         fn(*args, **kwargs)

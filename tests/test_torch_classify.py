@@ -99,16 +99,15 @@ def test_one_device_classify_tensors_and_staged_shape():
 
 
 @pytest.mark.parametrize("under", ["under", "over"])
-def test_counting_fallback_matches_histogram(monkeypatch, under):
-    """Above ``NBINS_MAX`` bins the search counts each stage on the device:
-    the same threshold, Fit and class map."""
+def test_integer_hand_counts_one_pass_a_stage(monkeypatch, under):
+    """Integer HAND counts each search stage on the device: the host
+    float64 path's threshold, Fit and class map."""
     hand, flood = _hand_flood(72, 100, seed=21, cut=8, noise=0)
     if under == "over":
         flood = ((hand != -100) & (hand >= 12)).astype(np.uint8)
-    want = _port(hand, flood, under=under)
+    want = pipeline.classify_flood(hand, flood, under=under)
     calls = []
     real = tclassify._block_cut_counts
-    monkeypatch.setattr(tclassify, "NBINS_MAX", 1)
     monkeypatch.setattr(tclassify, "_block_cut_counts", lambda *a: calls.append(1) or real(*a))
     got = _port(hand, flood, under=under)
     # A pass a search stage that has a cutoff not counted yet: here the
@@ -119,14 +118,18 @@ def test_counting_fallback_matches_histogram(monkeypatch, under):
     np.testing.assert_array_equal(got[3], want[3])
 
 
-def test_histogram_path_is_one_pass(monkeypatch):
+@pytest.mark.parametrize("under", ["under", "over"])
+def test_integer_hand_of_a_wide_value_range(under):
+    """Integer HAND up to about 5,000,000 (wider than 2^22 values, and
+    exact in float32): integer cutoffs through the counting passes, the
+    host float64 paths' threshold, Correctness, Fit and class map."""
     hand, flood = _hand_flood(72, 100, seed=21, cut=8, noise=0)
-    calls = []
-    real = tclassify._block_histogram
-    monkeypatch.setattr(tclassify, "_block_histogram", lambda *a: calls.append(1) or real(*a))
-    monkeypatch.setattr(tclassify, "_block_cut_counts", None)
-    _port(hand, flood)
-    assert calls == [1]
+    spread = np.random.default_rng(6).integers(0, 100_000, hand.shape)
+    wide = np.where(hand == -100, -100, hand * 100_000 + spread).astype(np.int32)
+    assert wide.max() - wide[wide != -100].min() > 1 << 22 and wide.max() < 1 << 24
+    if under == "over":
+        flood = ((hand != -100) & (hand >= 12)).astype(np.uint8)
+    _assert_host(wide, flood, under)
 
 
 def test_non_integer_hand_and_degenerate_range_raise():
@@ -299,10 +302,16 @@ def test_float_path_passes_reads_and_spans():
 
 
 def test_integer_path_reads_unchanged():
-    """Integer HAND keeps the histogram pass: no counting pass, 6 host
-    reads (the statistics' one, ``bincount``'s 2 and 3 of the histogram)."""
+    """Integer HAND: a counting pass a search stage with a cutoff not
+    counted yet (``classify.count``, ``passes`` 1; three on this basin,
+    whose later stages' integer cutoffs repeat earlier ones) and 1 + passes
+    host reads (the statistics' one and one a pass), no float32
+    bisection."""
     hand, flood = _hand_flood(72, 100, seed=21, cut=8, noise=0)
     with timing.recording() as rec:
         _port(hand, flood)
-    assert not [s for s in rec.spans if s.name == "classify.count"]
-    assert sum(s.counters.get("host_reads", 0) for s in rec.spans) == 6
+    counts = [s for s in rec.spans if s.name == "classify.count"]
+    assert [s.counters["passes"] for s in counts] == [1] * 3
+    assert sum(s.counters["host_reads"] for s in counts) == 3
+    assert sum(s.counters.get("host_reads", 0) for s in rec.spans) == 1 + 3
+    assert "float_cutoffs" not in [s for s in rec.spans if s.name == "classify.search"][0].counters

@@ -30,6 +30,7 @@ from descriptools_tpu.ops.pallas import walk_vmem
 from descriptools_tpu.ops.pallas.walk import flow_pallas
 from descriptools_tpu.utils.synthetic import synthetic_basin
 from descriptools_tpu_torch import pipeline as tpipe
+from descriptools_tpu_torch import placement
 from descriptools_tpu_torch import tiled
 from descriptools_tpu_torch.ops import flow as tflow
 from descriptools_tpu_torch.ops.cuda import walk as twalk
@@ -327,7 +328,7 @@ def test_suite_torch_blocked_matches_jax_blocked_tier(monkeypatch):
 
 
 def test_engine_names():
-    assert tpipe.ENGINES == ("auto", "cuda", "torch", "cuda_blocked", "torch_blocked")
+    assert placement.ENGINES == ("auto", "cuda", "torch", "cuda_blocked", "torch_blocked")
     cpu = torch.device("cpu")
     assert tpipe.resolve_engine("torch_blocked", cpu) == "torch_blocked"
     assert tpipe.resolve_engine("cuda_blocked", torch.device("cuda", 0)) == "cuda_blocked"

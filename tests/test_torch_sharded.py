@@ -240,16 +240,15 @@ def test_mesh_classifier_matches_jax_and_host(shape, under):
 
 
 def test_mesh_classifier_counting_fallback_and_padding(monkeypatch):
-    """The counting fallback (forced by a tiny NBINS_MAX) on 45x53, which
-    divides by no mesh: the padding is masked out of the statistics, and
-    the class map stays per block with ``crop=False``."""
+    """Integer HAND's counting passes on 45x53, which divides by no mesh:
+    the padding is masked out of the statistics, and the class map stays
+    per block with ``crop=False``."""
     hand, flood = _hand_flood(5, 5, 45, 53)
     hand = np.where(hand == NODATA, 3, hand)  # no NoData: the min is a real value
     want = pipeline.classify_flood(hand, flood)
     mesh = make_mesh((2, 4), device="cpu")
     calls = []
     real = tclassify._block_cut_counts
-    monkeypatch.setattr(tclassify, "NBINS_MAX", 4)
     monkeypatch.setattr(tclassify, "_block_cut_counts", lambda *a: calls.append(1) or real(*a))
     got = tclassify.sharded_classify_flood(hand, flood, mesh, crop=False)
     assert calls and got[:3] == want[:3]

@@ -106,7 +106,7 @@ def test_flow_accumulation_truncated_on_a_long_line():
     assert r_full == 9  # 2^9 >= 300 steps
     for max_path in (2, 16, 100, 256):
         trunc, r = _fac_both(fdr, max_path=max_path)
-        assert r == tterrain._levels(max_path)
+        assert r == td8.doubling_rounds(max_path)
         assert (trunc <= full).all() and (trunc != full).any()
 
 

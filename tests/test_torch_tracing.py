@@ -11,8 +11,8 @@ import pytest
 import torch
 
 from descriptools_tpu_torch import pipeline
+from descriptools_tpu_torch.d8 import doubling_rounds
 from descriptools_tpu_torch.ops import terrain
-from descriptools_tpu_torch.ops.flow import _doubling_rounds
 from descriptools_tpu_torch.parallel import classify
 from descriptools_tpu_torch.utils import timing
 from descriptools_tpu_torch.utils.synthetic import synthetic_basin
@@ -23,6 +23,7 @@ TREES = {
     "terrain": ["terrain.d8", "terrain.accumulation"],
     "classify": ["classify.stats", "classify.search", "classify.map"],
 }
+NESTED = {"classify.count": "classify.search"}  # a stage's spans opened inside another stage's
 
 
 @pytest.fixture(scope="module")
@@ -36,10 +37,13 @@ def calls(basin):
     """One call of each entry point, on the basin: (name, call)."""
     hand = pipeline.descriptor_suite(*basin, CFG)["hand"]
     flood = ((hand != -100) & (hand <= 6)).to(torch.uint8)
+    frac = torch.as_tensor(np.random.default_rng(4).uniform(0.0, 0.9, tuple(hand.shape)), dtype=torch.float32)
+    float_hand = torch.where(hand == -100, -100.0, hand + frac)
     return {
         "suite": lambda: pipeline.descriptor_suite(*basin, CFG),
         "terrain": lambda: terrain.derive_terrain(basin[0]),
         "classify": lambda: classify.sharded_classify_flood(hand, flood, device="cpu"),
+        "classify_float": lambda: classify.sharded_classify_flood(float_hand, flood, device="cpu"),
     }
 
 
@@ -48,14 +52,19 @@ def test_spans_nest_with_one_request_per_call(calls, entry):
     with timing.recording() as rec:
         calls[entry]()
         calls[entry]()
-    n = 1 + len(TREES[entry])
-    assert [s.name for s in rec.spans] == ([entry] + TREES[entry]) * 2
-    for root in (0, n):
-        spans = rec.spans[root:root + n]
-        assert spans[0].parent is None and all(s.parent == root for s in spans[1:])
+    roots = [i for i, s in enumerate(rec.spans) if s.parent is None]
+    assert [rec.spans[r].name for r in roots] == [entry] * 2
+    for root, end in zip(roots, roots[1:] + [len(rec.spans)]):
+        spans = rec.spans[root:end]
+        stages = [s for s in spans[1:] if s.name not in NESTED]
+        assert [s.name for s in stages] == TREES[entry] and all(s.parent == root for s in stages)
+        for s in spans[1:]:
+            if s.name in NESTED:
+                outer = rec.spans[s.parent]
+                assert outer.name == NESTED[s.name] and outer.start <= s.start <= s.end <= outer.end
         assert {s.request for s in spans} == {root}
         assert all(spans[0].start <= s.start <= s.end <= spans[0].end for s in spans)
-        assert all(a.end <= b.start for a, b in zip(spans[1:], spans[2:]))
+        assert all(a.end <= b.start for a, b in zip(stages, stages[1:]))
     assert not rec._open
 
 
@@ -137,7 +146,7 @@ def test_flow_rounds_counted(calls):
     with timing.recording() as rec:
         calls["suite"]()
     by = {s.name: s.counters for s in rec.spans}
-    assert by["suite.flow"] == {"rounds": _doubling_rounds(CFG.flow_max_steps)}
+    assert by["suite.flow"] == {"rounds": doubling_rounds(CFG.flow_max_steps)}
     assert "fused" not in by["suite.flow"]
     assert all(c == {} for name, c in by.items() if name != "suite.flow")
 
@@ -176,36 +185,31 @@ def test_flow_stage_is_one_entry_on_the_card(basin, tmp_path):
     assert sum("flow_finish_kernel" in name for name in device) == 1, device
 
 
-@pytest.mark.parametrize("path", ["histogram", "counting"])
-def test_classify_counts_its_host_reads_and_writes(calls, monkeypatch, path):
-    """The classifier's ``host_reads`` are its ``.cpu()`` reads and two a
-    ``bincount`` (its input's least and largest values): the statistics'
-    one, then the histogram's three and the ``bincount``'s two, or one a
-    counting pass, each in a ``classify.count`` span (a pass a search
-    stage with a cutoff not counted yet: three on this basin, whose later
-    stages' integer cutoffs repeat earlier ones; the final threshold's is
-    counted already).  It makes no ``host_writes``: its 0-dim tensors of
-    host values (the second minimum's fill, the histogram's base, the class
-    map's cut) are filled on the device, and a counting pass takes its
-    cutoffs as kernel parameters."""
-    if path == "counting":
-        monkeypatch.setattr(classify, "NBINS_MAX", 0)
+@pytest.mark.parametrize("hand", ["integer", "float"])
+def test_classify_counts_its_host_reads_and_writes(calls, monkeypatch, hand):
+    """The classifier's ``host_reads`` are its ``.cpu()`` reads: the
+    statistics' one, then one a counting pass, each in a ``classify.count``
+    span (a pass a search stage with a cutoff not counted yet: three on
+    this basin's integer HAND, whose later stages' integer cutoffs repeat
+    earlier ones, five on its float HAND; the final threshold's is counted
+    already).  It makes no ``host_writes``: its 0-dim tensors of host
+    values (the second minimum's fill, the class map's cut) are filled on
+    the device, and a counting pass takes its cutoffs as kernel
+    parameters."""
     reads, writes = [], []
-    real_cpu, real_bincount, real_tensor, real_as = torch.Tensor.cpu, torch.bincount, torch.tensor, torch.as_tensor
+    real_cpu, real_tensor, real_as = torch.Tensor.cpu, torch.tensor, torch.as_tensor
     monkeypatch.setattr(torch.Tensor, "cpu", lambda self, *a, **k: reads.append(1) or real_cpu(self, *a, **k))
-    monkeypatch.setattr(torch, "bincount", lambda *a, **k: reads.extend([1, 1]) or real_bincount(*a, **k))
     monkeypatch.setattr(torch, "tensor", lambda *a, **k: writes.append(1) or real_tensor(*a, **k))
     monkeypatch.setattr(torch, "as_tensor", lambda x, *a, **k: (  # a list of cuts, not the flood map
         writes.append(1) if isinstance(x, list) else None) or real_as(x, *a, **k))
     with timing.recording() as rec:
-        calls["classify"]()
+        calls["classify" if hand == "integer" else "classify_float"]()
     by = {}
     for s in rec.spans:
         r, w = by.get(s.name, (0, 0))
         by[s.name] = (r + s.counters.get("host_reads", 0), w + s.counters.get("host_writes", 0))
     want = {"classify": (0, 0), "classify.stats": (1, 0), "classify.map": (0, 0)}
-    want.update({"classify.search": (5, 0)} if path == "histogram" else
-                {"classify.search": (0, 0), "classify.count": (3, 0)})
+    want.update({"classify.search": (0, 0), "classify.count": (3 if hand == "integer" else 5, 0)})
     assert by == want
     assert sum(r for r, _ in by.values()) == len(reads)
     assert sum(w for _, w in by.values()) == len(writes)
