@@ -131,11 +131,15 @@ Phases, each printing its own lines:
    script with ``device="cpu"``;
 7. an oracle probe: the card's suite on a crop of the basin against the
    float64 ``oracle`` (integers exact, floats within rtol 2e-5);
-8. BASELINE config 3 at 10000x10000: ``derive_terrain`` on
-   ``synthetic_dem(10000, 10000, seed=0)`` (int32), with its two stages
-   timed as it runs them (the D8 kernel ``d8_successor``, then the
-   accumulation on its successor), the accumulation's rounds and device
-   time by activity, and peak memory; fdr
+8. BASELINE config 3 at 10000x10000: first the accumulation's C entry
+   against ``flow_accumulation_plain`` on the D8 successor of each tile
+   cell's DEM (``accumulation_on_tile_mixes``: ``dem_to_classmap``, int32,
+   and ``float_dem_to_classmap``, float32): fac, stats and the jumped
+   successor bitwise, ``derive_terrain`` launching it once, each timed
+   (CUDA events) with its device time by activity, its peak device memory
+   and its bound, 8 B a cell (succ read, fac written); then
+   ``derive_terrain`` on ``synthetic_dem(10000, 10000, seed=0)`` (int32),
+   timed with its D8 kernel, its rounds and peak memory; fdr
    bitwise the CPU's, fac held by the donor-sum identity over every cell
    (and bitwise the CPU's at 2178x1534); the river ``fac > RIVER_FAC``;
    the suite through K2/K3/K4 (launch counters read) against
@@ -158,10 +162,11 @@ Phases, each printing its own lines:
    of both tile cells' mixes (``dem_to_classmap``, int32, and
    ``float_dem_to_classmap``, float32, at 10000x10000): ``derive_terrain``
    with the launch counters reset just before (``d8_successor`` 1 launch,
-   no other kernel); ``d8_successor`` and ``d8_successor_plain`` on the
-   same card tensor, fdr and succ bitwise, each timed (CUDA events) with the kernel's device time
-   and its bound, 12 B a cell (dem 4 read, fdr and succ 4 each written) at
-   the card's memory rate;
+   the accumulation 1, no other kernel); ``d8_successor`` and
+   ``d8_successor_plain`` on the same card tensor, fdr and succ bitwise,
+   each timed (CUDA events) with the kernel's device time and its bound,
+   12 B a cell (dem 4 read, fdr and succ 4 each written) at the card's
+   memory rate;
 9. the measuring entry points: ``bench_torch.py`` in a process of its
    own, as a user runs it, its JSON line read (every key of ``bench.py``'s
    line, engine "cuda", K2, K3 and K4 launched once a suite it ran,
@@ -171,7 +176,8 @@ Phases, each printing its own lines:
    as ``calibration(backend="torch")`` of phase 2's HAND on the CPU).
 
 ``--long-drainage`` runs phases 0 and 2c alone; ``--float-dem`` phases 0
-and 8b; ``--d8`` phases 0 and 8c.
+and 8b; ``--d8`` phases 0 and 8c; ``--accumulation`` phase 0 and phase
+8's ``accumulation_on_tile_mixes``.
 
 ``--link-probes`` runs only the host link's probes, on phase 4's grid:
 ``tiled_suite`` at 8192x8192 with and without ``upload_in_prefetch`` under
@@ -246,6 +252,12 @@ KERNELS = {
     # (descriptools_tpu/d8.py:75), no Pallas kernel.
     "d8_successor": dict(
         source="descriptools_tpu_torch/csrc/terrain.cu",
+        replaces=None,
+    ),
+    # Terrain's accumulation rounds: the JAX package's are jnp
+    # (descriptools_tpu/ops/terrain.py:37), no Pallas kernel.
+    "accumulation": dict(
+        source="descriptools_tpu_torch/csrc/accumulation.cu",
         replaces=None,
     ),
 }
@@ -2483,9 +2495,12 @@ RIVER_FAC = 10  # config 3's river: cells with more than this many upstream cell
 FLOOD_HAND = 5  # config 3's flood map: HAND <= this, 90 % of those cells (seeded)
 
 
-def phase_config3(dev, card):
+def phase_config3(dev, card, errs):
     """BASELINE config 3 on the card: terrain from a 10000x10000 DEM, the
-    suite through the kernels, the exact calibration on the card."""
+    accumulation's entry against its plain version on both tile mixes
+    (``accumulation_on_tile_mixes``), the suite through the kernels, the
+    exact calibration on the card.  Returns the accumulation's
+    ({"accumulation": launches}, {"accumulation": timing})."""
     from descriptools_tpu_torch import d8, pipeline, tiled
     from descriptools_tpu_torch.ops import terrain
     from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
@@ -2500,6 +2515,7 @@ def phase_config3(dev, card):
     for name, g, w in zip(("fdr", "fac"), got, want):
         check_bitwise(f"derive_terrain {ROWS}x{COLS} {name}", g.cpu(), w)
     print(f"derive_terrain synthetic_dem({ROWS}, {COLS}, seed=0) on the card: fdr and fac bitwise the CPU's")
+    acc_launches, acc_times = accumulation_on_tile_mixes(dev, card, errs)
 
     t0 = time.perf_counter()
     dem_np = synthetic_dem(SIDE, SIDE, seed=0).astype(np.int32)
@@ -2514,22 +2530,11 @@ def phase_config3(dev, card):
     fdr, fac = terrain.derive_terrain(dem, stats=stats)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
-    # derive_terrain's two stages as it runs them on the card: the D8 kernel,
-    # then the accumulation on its successor (a copy each call: the rounds
-    # overwrite it).
-    _, succ = ct.d8_successor(dem)
-    accumulate = lambda: terrain.flow_accumulation(fdr, succ=succ.clone())  # noqa: E731
-    acc_ms = median_ms(accumulate, 3)
-    by_activity = device_kernels_ms(accumulate, calls=3)
-    top = sorted(by_activity.items(), key=lambda kv: -kv[1])[:4]
-    print("config 3 flow_accumulation on D8's successor (with its copy), device time a call by activity "
-          "(torch.profiler): " + ", ".join(f"{k[:48]} {v:.3f} ms" for k, v in top)
-          + f"; all {len(by_activity)} activities {sum(by_activity.values()):.3f} ms  [{card}]")
+    terrain_ms = median_ms(lambda: terrain.derive_terrain(dem), 3)
     d8_ms = median_ms(lambda: ct.d8_successor(dem), 3)
-    del succ
-    print(f"config 3 derive_terrain {SIDE}x{SIDE}: d8_successor {d8_ms:.3f} ms, flow_accumulation on its "
-          f"successor (with its copy) {acc_ms:.3f} ms, {stats['rounds']} rounds, live cells entering each: "
-          f"{stats['live']}; peak device memory {peak / 2**30:.3f} GiB  [{card}]")
+    print(f"config 3 derive_terrain {SIDE}x{SIDE}: {terrain_ms:.3f} ms, d8_successor {d8_ms:.3f} ms of it; "
+          f"{stats['rounds']} rounds, live cells entering each: {stats['live']}; peak device memory "
+          f"{peak / 2**30:.3f} GiB  [{card}]")
 
     t0 = time.perf_counter()
     fdr_cpu = d8.d8_flow_direction(torch.from_numpy(dem_np))
@@ -2594,6 +2599,7 @@ def phase_config3(dev, card):
           f"tiled_classify_flood; card {one_card_ms:.3f} ms, host {host_s:.3f} s  [{card}]")
     del hand, flood, dem, fdr, fac, river, got
     torch.cuda.empty_cache()
+    return acc_launches, acc_times
 
 
 FLOAT_MIX = os.path.join(ROOT, "benchmark", "traffic", "float_dem_to_classmap.json")
@@ -2713,18 +2719,103 @@ def phase_float_dem(dev, card, errs):
 
 TILE_MIXES = (("srtm_tile_10k", "dem_to_classmap"), ("lidar_3dep_1m", "float_dem_to_classmap"))
 D8_SEED = 2147507300
+ACCUMULATION_SEED = 2147507400
+
+
+def tile_mix_dem(dev, config_name, mix_name, seed):
+    """(the DEM of a tile cell's mix at its size on the card, rows, cols)."""
+    from benchmark import inputs as bench_inputs
+
+    with open(os.path.join(ROOT, "benchmark", "traffic", f"{mix_name}.json")) as f:
+        mix = json.load(f)
+    with open(os.path.join(ROOT, "benchmark", "configs", f"{config_name}.json")) as f:
+        config = json.load(f)
+    rows, cols = config["rows"], config["cols"]
+    return bench_inputs.make_input(mix, rows, cols, seed, dev)["dem"], rows, cols
+
+
+def accumulation_on_tile_mixes(dev, card, errs):
+    """The accumulation's C entry against ``flow_accumulation_plain`` on the
+    card, on the D8 successor of each tile cell's DEM (its mix at its size):
+    fac, stats and the jumped successor bitwise; ``derive_terrain``, with
+    the counters reset just before, launches the entry once; each timed
+    (CUDA events, with the successor's copy that each call needs: the
+    rounds overwrite it) with its device time by activity (torch.profiler)
+    and its peak device memory above what it was given, beside the bound,
+    8 B a cell (succ read, fac written) at the card's memory rate.
+    Returns ({"accumulation": launches a ``derive_terrain``},
+    {"accumulation": timing}), the timing on the LiDAR mix, the longer."""
+    from descriptools_tpu_torch.ops import terrain
+    from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
+    from descriptools_tpu_torch.ops.cuda import terrain as ct
+
+    t_phase = time.perf_counter()
+    rows_out = []
+    for config_name, mix_name in TILE_MIXES:
+        torch.cuda.empty_cache()
+        dem, rows, cols = tile_mix_dem(dev, config_name, mix_name, ACCUMULATION_SEED)
+        reset_launch_counters()
+        terrain.derive_terrain(dem)
+        torch.cuda.synchronize()
+        counted = launch_counters()
+        if counted["accumulation"] != 1:
+            raise AssertionError(f"derive_terrain on the {mix_name} DEM: launches {counted}, not one accumulation")
+        fdr, succ = ct.d8_successor(dem)
+        del dem
+        calls = {}
+        for name, fn in (("entry", terrain.flow_accumulation), ("plain", terrain.flow_accumulation_plain)):
+            jumped = succ.clone()
+            stats = {}
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            fac = fn(fdr, stats=stats, succ=jumped)
+            torch.cuda.synchronize()
+            calls[name] = dict(fac=fac, stats=stats, succ=jumped,
+                               peak=torch.cuda.max_memory_allocated(dev) - base)
+        check_bitwise(f"accumulation {mix_name} fac vs flow_accumulation_plain", calls["entry"]["fac"],
+                      calls["plain"]["fac"])
+        check_bitwise(f"accumulation {mix_name} jumped succ vs flow_accumulation_plain", calls["entry"]["succ"],
+                      calls["plain"]["succ"])
+        if calls["entry"]["stats"] != calls["plain"]["stats"]:
+            raise AssertionError(f"accumulation {mix_name} stats: {calls['entry']['stats']} vs "
+                                 f"{calls['plain']['stats']}")
+        stats = calls["entry"]["stats"]
+        peaks = {k: v["peak"] for k, v in calls.items()}
+        del calls, fac, jumped
+        entry = lambda: terrain.flow_accumulation(fdr, succ=succ.clone())  # noqa: E731
+        plain = lambda: terrain.flow_accumulation_plain(fdr, succ=succ.clone())  # noqa: E731
+        bound = fdr.numel() * 8 / HBM_BYTES_PER_MS
+        row = dict(ms=median_ms(entry), plain_ms=median_ms(plain, 3), bound_ms=bound, bound_by="bytes")
+        rows_out.append(row)
+        for name, fn in (("entry", entry), ("plain", plain)):
+            by_activity = device_kernels_ms(fn, calls=3 if name == "plain" else 6 * REPEATS)
+            top = sorted(by_activity.items(), key=lambda kv: -kv[1])[:6]
+            print(f"accumulation {mix_name} {name}: device time a call by activity (torch.profiler, the "
+                  f"successor's copy included): " + ", ".join(f"{k[:48]} {v:.4f} ms" for k, v in top)
+                  + f"; all {len(by_activity)} activities {sum(by_activity.values()):.4f} ms")
+        print(f"time accumulation {mix_name} {rows}x{cols} (seed {ACCUMULATION_SEED}): entry {row['ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.3f} ms (each with the successor's copy), bound {bound:.4f} ms (8 B a "
+              f"cell); {stats['rounds']} rounds, live cells entering each {stats['live']} "
+              f"({sum(stats['live'])} in all); peak device memory above its operands: entry "
+              f"{peaks['entry'] / 2**30:.3f} GiB, plain {peaks['plain'] / 2**30:.3f} GiB; fac, stats and the "
+              f"jumped successor bitwise; derive_terrain launches it once  [{card}]")
+        del fdr, succ
+    errs["accumulation"] = 0.0
+    torch.cuda.empty_cache()
+    print(f"accumulation phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"accumulation": counted["accumulation"]}, {"accumulation": rows_out[-1]}
 
 
 def phase_d8(dev, card, errs):
     """Terrain's D8 kernel on each tile cell's DEM (its mix at its size):
     ``derive_terrain``, with the launch counters set to 0 just before,
-    launches ``d8_successor`` once and no other kernel; fdr and succ are
-    bitwise the plain version's on the same card tensor; the kernel's time
-    (CUDA events) and device time (torch.profiler) beside its bound and the
-    plain version's time.  Returns ({"d8_successor": launches a
+    launches ``d8_successor`` once, the accumulation once and no other
+    kernel; fdr and succ are bitwise the plain version's on the same card
+    tensor; the kernel's time (CUDA events) and device time
+    (torch.profiler) beside its bound and the plain version's time.  Returns ({"d8_successor": launches a
     ``derive_terrain``}, {"d8_successor": timing}), the timing on the
     first mix."""
-    from benchmark import inputs as bench_inputs
     from descriptools_tpu_torch.ops import terrain
     from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counters
     from descriptools_tpu_torch.ops.cuda import terrain as ct
@@ -2733,20 +2824,15 @@ def phase_d8(dev, card, errs):
     launches = []
     rows_out = []
     for config_name, mix_name in TILE_MIXES:
-        with open(os.path.join(ROOT, "benchmark", "traffic", f"{mix_name}.json")) as f:
-            mix = json.load(f)
-        with open(os.path.join(ROOT, "benchmark", "configs", f"{config_name}.json")) as f:
-            config = json.load(f)
-        rows, cols = config["rows"], config["cols"]
         torch.cuda.empty_cache()
-        dem = bench_inputs.make_input(mix, rows, cols, D8_SEED, dev)["dem"]
+        dem, rows, cols = tile_mix_dem(dev, config_name, mix_name, D8_SEED)
         reset_launch_counters()
         terrain.derive_terrain(dem)
         torch.cuda.synchronize()
         counted = launch_counters()
-        if counted != {**dict.fromkeys(counted, 0), "d8_successor": 1}:
+        if counted != {**dict.fromkeys(counted, 0), "d8_successor": 1, "accumulation": 1}:
             raise AssertionError(f"derive_terrain on the {mix_name} DEM: launches {counted}, not one "
-                                 f"d8_successor and no other kernel")
+                                 f"d8_successor, one accumulation and no other kernel")
         launches.append(counted["d8_successor"])
         kernel = lambda d=dem: ct.d8_successor(d)  # noqa: E731
         plain = lambda d=dem: ct.d8_successor_plain(d)  # noqa: E731
@@ -2889,7 +2975,9 @@ def main():
     del full
     phase_compat(dev, basin)
     phase_oracle(dev, basin)
-    phase_config3(dev, card)
+    acc_launches, acc_times = phase_config3(dev, card, errs)
+    launches.update(acc_launches)
+    times.update(acc_times)
     float_launches, float_times = phase_float_dem(dev, card, errs)
     launches.update(float_launches)
     times.update(float_times)
@@ -2948,6 +3036,19 @@ def main_d8():
                                        **times["d8_successor"], library_ms=None)]}))
 
 
+def main_accumulation():
+    """``--accumulation``: the device phase and the accumulation's part of
+    phase 8 alone (``accumulation_on_tile_mixes``), with the entry's row."""
+    phase_device()
+    dev, card = torch.device("cuda", 0), card_line()
+    errs = {"accumulation": 0.0}
+    launches, times = accumulation_on_tile_mixes(dev, card, errs)
+    print(card)
+    print(json.dumps({"kernels": [dict(name="accumulation", route="cuda", **KERNELS["accumulation"],
+                                       launches=launches["accumulation"], max_abs_err=errs["accumulation"],
+                                       **times["accumulation"], library_ms=None)]}))
+
+
 def main_link_probes():
     """``--link-probes``: the host link's probes alone, on phase 4's grid
     (``upload_overlap``, ``copy_overlap``); no kernel is checked."""
@@ -2973,5 +3074,7 @@ if __name__ == "__main__":
         main_float_dem()
     elif sys.argv[1:] == ["--d8"]:
         main_d8()
+    elif sys.argv[1:] == ["--accumulation"]:
+        main_accumulation()
     else:
         main()

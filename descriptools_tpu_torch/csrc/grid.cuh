@@ -1,4 +1,5 @@
-// Launch geometry shared by the walk kernels (walk.cu, flow_fold.cu).
+// Launch geometry shared by the walk kernels (walk.cu, flow_fold.cu) and the
+// accumulation's rounds (accumulation.cu).
 #pragma once
 
 #include <cuda_runtime.h>

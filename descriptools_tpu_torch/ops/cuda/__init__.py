@@ -20,6 +20,7 @@ def _wrappers():
         "flow_walk_blocked": walk.flow_walk_blocked,
         "cutoff_count": classify.cutoff_count,
         "d8_successor": terrain.d8_successor,
+        "accumulation": terrain.accumulation,
     }
 
 

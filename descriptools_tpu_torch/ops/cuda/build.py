@@ -82,6 +82,9 @@ SIGNATURES = {
     # terrain's D8: dem, dem type (0 float32, 1 int32, 2 int16), fdr, succ,
     # rows, cols, nodata, the diagonal step, stream
     "launch_d8": [_VP, _I, _VP, _VP, _I, _I, _F, _F, _VP],
+    # terrain's accumulation: succ (jumped in place), fac, counts, n_counts,
+    # scratch (2n + 4 ceil(n / 2) ints), rows, cols, levels, stream
+    "launch_accumulation": [_VP, _VP, _VP, _I, _VP, _I, _I, _I, _VP],
 }
 
 

@@ -7,26 +7,41 @@ that terminals chain to and that is zeroed after every round:
 
     F_{j+1} = F_j + scatter_add(F_j, by=succ_j);  succ_{j+1} = succ_j[succ_j]
 
-The adds are ``index_add_`` on int32, exact in any order, so every result
-is bitwise the JAX one, truncated accumulations included: the loop keeps
-JAX's cap of ``d8.doubling_rounds(max_path)`` rounds and its exit once
-every cell's successor is the sink, read on the host once a round.
+The adds are int32, exact in any order, so every result is bitwise the JAX
+one, truncated accumulations included: the rounds keep JAX's cap of
+``d8.doubling_rounds(max_path)`` rounds and its exit once every cell's
+successor is the sink.
 
 A cell whose successor is the sink adds only to the sink, which is
 zeroed, and keeps the sink for good.  So here the sink's adds are dropped
 (``n`` slots), and each round scatters and jumps only the cells still
-live, a list that shrinks every round; its length is the round's exit
-test.  (Scattering all ``n + 1`` slots every round, as JAX
-does, sends about ``n`` atomics a round to the sink's one address on a
-card; PERF.md records that form's time.)
+live, a list that shrinks every round.  On the card the rounds are one C
+entry that keeps them there, read on the host once at the end
+(``ops.cuda.terrain.accumulation``); on the CPU they are torch, the list's
+length read on the host once a round
+(``ops.cuda.terrain.accumulation_plain``).  (Scattering all ``n + 1``
+slots every round, as JAX does, sends about ``n`` atomics a round to the
+sink's one address on a card; PERF.md records that form's time.)
 """
 
 import torch
 
 from descriptools_tpu_torch.constants import NODATA
 from descriptools_tpu_torch.d8 import doubling_rounds, sink_successor
-from descriptools_tpu_torch.ops.cuda.terrain import d8_successor
+from descriptools_tpu_torch.ops.cuda.terrain import accumulation, accumulation_plain, d8_successor
 from descriptools_tpu_torch.utils import timing
+
+
+def _accumulate(rounds, fdr, max_path, stats, succ):
+    rows, cols = fdr.shape
+    levels = doubling_rounds(rows * cols if max_path is None else max_path)
+    f, live = rounds(sink_successor(fdr) if succ is None else succ, levels)
+    stats = {} if stats is None else stats
+    stats["live"] = live
+    stats["rounds"] = len(live)
+    timing.count("rounds", len(live))
+    timing.count("live_cells", sum(live))
+    return f.reshape(rows, cols)
 
 
 def flow_accumulation(fdr, max_path=None, stats=None, succ=None):
@@ -40,46 +55,30 @@ def flow_accumulation(fdr, max_path=None, stats=None, succ=None):
     it), and fdr is not decoded again; the rounds jump it in place, so it
     is overwritten.  ``stats`` (a dict, filled in place) gets ``rounds``,
     the doubling rounds run, and ``live``, the cells still live entering
-    each round.  Counters of the open span
-    (``utils.timing``): ``rounds``, ``live_cells`` (the sum of ``live``) and
-    ``host_reads``, 1 + 1 a round: the live list's length, read on the host
-    once to start and once a round.
+    each round.  The rounds are ``ops.cuda.terrain.accumulation``: one C
+    entry on the card, the plain rounds on the CPU.  Counters of the open
+    span (``utils.timing``): ``rounds``, ``live_cells`` (the sum of
+    ``live``), ``host_reads`` (on the card 1, the live counts read after
+    the last round; on the CPU 1 + 1 a round) and ``fused`` (1 a launch of
+    the C entry).
     """
-    rows, cols = fdr.shape
-    n = rows * cols
-    levels = doubling_rounds(n if max_path is None else max_path)
-    succ = (sink_successor(fdr) if succ is None else succ).view(-1)
-    dev = succ.device
-    f = torch.zeros(n, dtype=torch.int32, device=dev)
-    stats = {} if stats is None else stats
-    live = torch.nonzero(succ[:n] != n).reshape(-1)  # the host reads its length
-    timing.count("host_reads")
-    to = succ[live]
-    f.index_add_(0, to, torch.ones_like(to))
-    stats["live"] = []
-    rounds = 0
-    while rounds < levels and live.numel():
-        stats["live"].append(live.numel())
-        f.index_add_(0, to, f[live])
-        to = succ[to]
-        succ[live] = to
-        keep = torch.nonzero(to != n).reshape(-1)  # the host reads its length
-        live, to = live[keep], to[keep]
-        timing.count("host_reads")
-        rounds += 1
-    stats["rounds"] = rounds
-    timing.count("rounds", rounds)
-    timing.count("live_cells", sum(stats["live"]))
-    return f.reshape(rows, cols)
+    return _accumulate(accumulation, fdr, max_path, stats, succ)
+
+
+def flow_accumulation_plain(fdr, max_path=None, stats=None, succ=None):
+    """:func:`flow_accumulation` through the plain rounds
+    (``ops.cuda.terrain.accumulation_plain``) on any device: the version
+    the card's entry is held to."""
+    return _accumulate(accumulation_plain, fdr, max_path, stats, succ)
 
 
 def derive_terrain(dem, nodata=NODATA, max_path=None, stats=None):
     """(fdr, fac) derived from a DEM: steepest-descent D8 + accumulation,
     fac NoData where the DEM is.  ``stats`` as for ``flow_accumulation``.
     D8 gives each cell's successor too (``ops.cuda.terrain.d8_successor``:
-    one kernel on the card), and the accumulation takes it.  Spans
-    (``utils.timing``): ``terrain`` and, inside it, ``terrain.d8``
-    (counter ``fused``: 1 a launch of the kernel) and
+    one kernel on the card), and the accumulation takes it (one C entry on
+    the card).  Spans (``utils.timing``): ``terrain`` and, inside it,
+    ``terrain.d8`` (counter ``fused``: 1 a launch of the kernel) and
     ``terrain.accumulation`` (with the NoData mask; counters as for
     ``flow_accumulation``)."""
     with timing.span("terrain"):

@@ -304,3 +304,55 @@ def downslope_cases(rows=40, cols=56, seed=0):
         "terminal_holds_still": (still, east_still, 5.0, 30),
         "fractional_terminal_stops": (frac, east, 50.0, 5000),
     }
+
+
+def accumulation_cases():
+    """Named ``(fdr int32, max_path)`` on the edges of the flow
+    accumulation's rounds:
+
+    - ``synthetic_17``, ``synthetic_5``: seeded DEMs' D8, NoData included;
+    - ``line_<cap>``: a 300-step path east along a row and a shorter one
+      beside it, truncated at ``max_path`` 2, 16, 100 and 256 (and not);
+    - ``two_cycle``, ``two_cycle_wraps``: cells draining into a pair that
+      point at each other, so the pair never reaches the sink and every
+      round runs; the second at ``max_path`` 2^40 (40 rounds), whose
+      lap-multiplied counts wrap int32;
+    - ``ring``, ``ring_capped``: a 12-cell loop fed from inside and outside,
+      at the default cap and at ``max_path`` 5;
+    - ``all_sink``: every code 0, so no round runs and every count is 0;
+    - ``row``, ``column``: 1 x N east and N x 1 south lines.
+    """
+    cases = {}
+    for seed in (17, 5):
+        dem = synthetic_dem(40, 52, seed=seed)
+        dem[np.random.default_rng(seed).random(dem.shape) < 0.05] = NODATA
+        cases[f"synthetic_{seed}"] = (d8_from_dem(dem).astype(np.int32), None)
+    line = np.ones((2, 301), np.int32)
+    line[:, -1] = 0
+    line[1, :150] = 4  # south: off the grid, each cell its own terminal
+    for cap in (None, 2, 16, 100, 256):
+        cases[f"line_{cap}"] = (line, cap)
+    two = np.zeros((6, 8), np.int32)
+    two[:2, :] = 4  # south into row 2
+    two[2, :3] = 1  # east into the pair
+    two[2, 3], two[2, 4] = 1, 16  # the pair: east, then west
+    two[2, 5:] = 16  # west into the pair
+    cases["two_cycle"] = (two, None)
+    cases["two_cycle_wraps"] = (two, 1 << 40)
+    ring = np.full((6, 6), 4, np.int32)  # south: the top row feeds the loop
+    ring[1, 1:4] = 1  # the loop: east along row 1,
+    ring[1:4, 4] = 4  # south down column 4,
+    ring[4, 2:5] = 16  # west along row 4,
+    ring[2:5, 1] = 64  # north up column 1
+    ring[2:4, 2:4] = 64  # the inside drains north into it
+    ring[5, :] = 64  # the bottom row drains north into it
+    ring[1:5, 0] = 1  # the west column drains east into it
+    ring[1:5, 5] = 16  # the east column drains west into it
+    cases["ring"] = (ring, None)
+    cases["ring_capped"] = (ring, 5)
+    cases["all_sink"] = (np.zeros((5, 7), np.int32), None)
+    row = np.ones((1, 257), np.int32)
+    row[0, -1] = 0
+    cases["row"] = (row, None)
+    cases["column"] = (np.full((257, 1), 4, np.int32), None)  # the last step leaves the grid
+    return cases

@@ -20,6 +20,7 @@ from descriptools_tpu_torch.ops.cuda import launch_counters, reset_launch_counte
 from descriptools_tpu_torch.ops.cuda import stencil as st
 from descriptools_tpu_torch.ops.cuda import walk
 from descriptools_tpu_torch.utils.synthetic import (
+    accumulation_cases,
     adversarial_dem,
     d8_division_pin,
     d8_ties,
@@ -103,7 +104,7 @@ def test_suite_runs_every_kernel_and_matches_plain(dev, basin):
     assert launch_counters() == dict(
         stencil=1, downslope_walk=1, flow_walk=1,
         stencil_padded=0, absorbing_walk=0, downslope_walk_tracked=0, flow_walk_blocked=0,
-        cutoff_count=0, d8_successor=0,
+        cutoff_count=0, d8_successor=0, accumulation=0,
     )
     plain = pipeline.descriptor_suite(*inputs, pipeline.PipelineConfig(engine="torch"))
     for k in ("slope", "downslope", "fdist", "indices", "hand"):
@@ -515,6 +516,102 @@ def test_derive_terrain_launches_one_d8_kernel(dev, tmp_path):
     assert len(names) == 1 and "d8_kernel" in names[0], names
     assert launch_counters()["d8_successor"] == 1
     assert {s.name: s.counters for s in rec.spans}["terrain.d8"] == {"fused": 1}
+
+
+# The accumulation's cases: utils.synthetic's edge cases (fdr given), and
+# DEMs whose D8 and successor the D8 kernel gives on the card.
+ACCUMULATION_DEMS = ("int32_300x257_seed_4", "int32_300x257_seed_9", "int32_2178x1534_seed_0", "float_dem")
+
+
+def _accumulation_case(case, dev):
+    """(fdr, succ, max_path) on the card for a name of ACCUMULATION_DEMS,
+    ``accumulation_cases()`` or the long lines ``row_70001`` and
+    ``column_70001``."""
+    from descriptools_tpu_torch import d8
+    from descriptools_tpu_torch.ops.cuda import terrain as ct
+    from descriptools_tpu_torch.utils.synthetic import synthetic_dem
+
+    if case == "float_dem":
+        from benchmark.generators import float_dem
+
+        dem = float_dem.make(512, 640, 2147507200, dev, hills=101, valleys=21)["dem"]
+        assert dem.dtype == torch.float32 and bool((dem != torch.round(dem)).any())
+        return (*ct.d8_successor(dem), None)
+    if case.startswith("int32_"):
+        shape, seed = case.split("_")[1], int(case.split("_")[-1])
+        rows, cols = map(int, shape.split("x"))
+        dem = torch.as_tensor(synthetic_dem(rows, cols, seed=seed).astype(np.int32), device=dev)
+        return (*ct.d8_successor(dem), None)
+    if case in ("row_70001", "column_70001"):
+        fdr = np.ones((1, 70001), np.int32) if case == "row_70001" else np.full((70001, 1), 4, np.int32)
+        max_path = None
+    else:
+        fdr, max_path = accumulation_cases()[case]
+    fdr = torch.as_tensor(fdr, device=dev)
+    return fdr, d8.sink_successor(fdr), max_path
+
+
+@pytest.mark.parametrize("case", [*ACCUMULATION_DEMS, *accumulation_cases(), "row_70001", "column_70001"])
+def test_accumulation_entry_matches_plain(dev, case):
+    """The accumulation's C entry bitwise ``flow_accumulation_plain`` on the
+    card: fac, stats (the live list's lengths and the rounds) and the
+    successor jumped in place, on seeded int32 DEMs, a float32 DEM of the
+    LiDAR cell's generator, the long line truncated at several caps,
+    cycles (lap-multiplied counts, wrapping int32 at 40 rounds), a grid of
+    sinks (no round, fac 0), and 1 x N and N x 1 lines; one launch a call."""
+    from descriptools_tpu_torch.ops import terrain
+    from descriptools_tpu_torch.ops.cuda import terrain as ct
+
+    fdr, succ, max_path = _accumulation_case(case, dev)
+    got_succ, want_succ = succ.clone(), succ.clone()
+    stats_g, stats_w = {}, {}
+    before = ct.accumulation.launches
+    got = terrain.flow_accumulation(fdr, max_path=max_path, stats=stats_g, succ=got_succ)
+    assert ct.accumulation.launches == before + 1
+    want = terrain.flow_accumulation_plain(fdr, max_path=max_path, stats=stats_w, succ=want_succ)
+    assert got.is_cuda and got.dtype == want.dtype == torch.int32 and got.shape == fdr.shape
+    assert torch.equal(got, want), case
+    assert stats_g == stats_w, (stats_g, stats_w)
+    assert torch.equal(got_succ, want_succ), case
+    live = stats_g["live"]
+    assert all(a >= b for a, b in zip(live, live[1:])) and all(c > 0 for c in live)
+
+
+def test_derive_terrain_accumulates_in_one_entry(dev, tmp_path):
+    """``terrain.accumulation`` on the card is the C entry's memsets,
+    ``init_kernel``, a gather and an apply a round for every round of the
+    cap and ``finish_kernel``, the NoData mask's ``where`` and the one read
+    of the live counts: no torch indexing, ``index_add_`` or ``nonzero``;
+    its counters read ``fused`` 1 and ``host_reads`` 1."""
+    from descriptools_tpu_torch import d8
+    from descriptools_tpu_torch.ops import terrain
+    from descriptools_tpu_torch.utils import timing
+    from descriptools_tpu_torch.utils.synthetic import synthetic_dem
+
+    dem = torch.as_tensor(synthetic_dem(300, 257, seed=4).astype(np.int32), device=dev)
+    terrain.derive_terrain(dem)  # warm: the build and the first launch
+    torch.cuda.synchronize()
+    reset_launch_counters()
+    stats = {}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with timing.recording() as rec:
+            terrain.derive_terrain(dem, stats=stats)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    names = _stage_activities(tmp_path / "trace.json", "terrain.accumulation")
+    levels = d8.doubling_rounds(dem.numel())
+    assert sum("gather_kernel" in k for k in names) == sum("apply_kernel" in k for k in names) == levels, names
+    assert sum("init_kernel" in k for k in names) == sum("finish_kernel" in k for k in names) == 1, names
+    assert not [k for k in names if "index" in k.lower() or "select" in k.lower() or "nonzero" in k.lower()], names
+    others = [k for k in names if not any(x in k for x in ("init_kernel", "gather_kernel", "apply_kernel",
+                                                            "finish_kernel"))]
+    assert sum("Memset" in k for k in others) == 2 and len(others) <= 6, others  # the mask's, the read
+    assert launch_counters()["accumulation"] == 1
+    counters = {s.name: s.counters for s in rec.spans}["terrain.accumulation"]
+    assert counters == {"fused": 1, "host_reads": 1, "rounds": stats["rounds"],
+                        "live_cells": sum(stats["live"])}, counters
+    assert stats["rounds"] >= 1
 
 
 def test_calibration_on_the_card_matches_the_host(dev, basin):

@@ -203,7 +203,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_key_follows_the_sources():
     names = {p.name for p in build.sources()}
-    assert names == {"classify.cu", "flow_fold.cu", "stencil.cu", "terrain.cu", "walk.cu"}
+    assert names == {"accumulation.cu", "classify.cu", "flow_fold.cu", "stencil.cu", "terrain.cu", "walk.cu"}
     assert len(build.source_key()) == 16
     assert (build.CSRC / "d8.cuh").is_file()  # hashed with the sources
     assert str(build.BUILD_DIR.relative_to(ROOT)) == os.path.join("build", "torch_kernels")
@@ -223,7 +223,7 @@ def test_entry_points_match_the_sources_and_the_counters():
     reset_launch_counters()
     assert launch_counters() == dict.fromkeys(
         ("stencil", "downslope_walk", "flow_walk", "stencil_padded", "absorbing_walk",
-         "downslope_walk_tracked", "flow_walk_blocked", "cutoff_count", "d8_successor"), 0)
+         "downslope_walk_tracked", "flow_walk_blocked", "cutoff_count", "d8_successor", "accumulation"), 0)
     # Each launcher has a wrapper that names it.
     wrappers = "".join(p.read_text() for p in (ROOT / "descriptools_tpu_torch" / "ops" / "cuda").glob("*.py"))
     for name in declared:

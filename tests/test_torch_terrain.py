@@ -3,7 +3,10 @@
 against the JAX package's, bitwise, and flow accumulation against a
 brute-force path count; ``ops.cuda.terrain.d8_successor`` on the CPU (its
 plain version) against D8 and a decode of its codes, and the accumulation
-given that successor against the accumulation that decodes fdr."""
+given that successor against the accumulation that decodes fdr;
+``flow_accumulation_plain`` against ``flow_accumulation`` and JAX on
+``utils.synthetic.accumulation_cases`` and a float DEM, and the argument
+checks of ``ops.cuda.terrain.accumulation``."""
 
 import numpy as np
 import pytest
@@ -16,7 +19,13 @@ from descriptools_tpu_torch.constants import NODATA
 from descriptools_tpu_torch.ops import terrain as tterrain
 from descriptools_tpu_torch.ops.cuda import terrain as cterrain
 from descriptools_tpu_torch.utils import timing
-from descriptools_tpu_torch.utils.synthetic import d8_division_pin, d8_from_dem, d8_ties, synthetic_dem
+from descriptools_tpu_torch.utils.synthetic import (
+    accumulation_cases,
+    d8_division_pin,
+    d8_from_dem,
+    d8_ties,
+    synthetic_dem,
+)
 
 
 def brute_force_fac(fdr):
@@ -112,10 +121,11 @@ def test_flow_accumulation_truncated_on_a_long_line():
 
 def test_flow_accumulation_live_list_shrinks():
     fdr = d8_from_dem(synthetic_dem(60, 60, seed=4))
-    stats = {}
-    tterrain.flow_accumulation(torch.from_numpy(fdr), stats=stats)
-    live = stats["live"]
-    assert len(live) == stats["rounds"] and all(a > b for a, b in zip(live, live[1:]))
+    for accumulate in (tterrain.flow_accumulation, tterrain.flow_accumulation_plain):
+        stats = {}
+        accumulate(torch.from_numpy(fdr), stats=stats)
+        live = stats["live"]
+        assert len(live) == stats["rounds"] and all(a > b for a, b in zip(live, live[1:]))
 
 
 @pytest.mark.parametrize("dtype", [np.int32, np.float64, np.int16, np.float32])
@@ -238,3 +248,66 @@ def test_d8_successor_refuses_what_int32_cannot_index():
         cterrain.d8_successor(torch.zeros(12))
     with pytest.raises(ValueError, match="int32"):
         cterrain.d8_successor(torch.zeros(1, 1).expand(1 << 16, 1 << 15))
+
+
+def _float_dem_fdr():
+    """D8 of a small float32 DEM of the LiDAR cell's generator (its hills
+    and valleys scaled to the grid), unrounded metres."""
+    from benchmark.generators import float_dem
+
+    dem = float_dem.make(96, 128, 2147507200, "cpu", hills=31, valleys=9)["dem"]
+    assert dem.dtype == torch.float32 and bool((dem != torch.round(dem)).any())
+    return cterrain.d8_successor(dem)[0].numpy()
+
+
+@pytest.mark.parametrize("case", [*accumulation_cases(), "float_dem"])
+def test_flow_accumulation_plain_is_flow_accumulation_on_the_cpu(case):
+    """On CPU tensors ``flow_accumulation`` is ``flow_accumulation_plain``:
+    counts, stats and the successor jumped in place equal, and the counts
+    JAX's, on the accumulation's edge cases (truncation, cycles whose
+    lap-multiplied counts wrap int32, no live cell, 1 x N and N x 1) and a
+    float DEM's D8."""
+    fdr, max_path = (_float_dem_fdr(), None) if case == "float_dem" else accumulation_cases()[case]
+    succ = torch.from_numpy(_sink_successor(fdr).astype(np.int32))
+    got_succ, want_succ = succ.clone(), succ.clone()
+    stats_g, stats_w = {}, {}
+    f = torch.from_numpy(fdr)
+    got = tterrain.flow_accumulation(f, max_path=max_path, stats=stats_g, succ=got_succ)
+    want = tterrain.flow_accumulation_plain(f, max_path=max_path, stats=stats_w, succ=want_succ)
+    assert torch.equal(got, want) and stats_g == stats_w and torch.equal(got_succ, want_succ)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jterrain.flow_accumulation(fdr, max_path=max_path)))
+    assert stats_g["rounds"] == len(stats_g["live"]) <= td8.doubling_rounds(max_path or fdr.size)
+
+
+def test_accumulation_fused_counter_reads_zero_on_the_cpu():
+    """``terrain.accumulation`` counts ``fused`` only for a launch of the C
+    entry: on the CPU the span has no such counter, no launch is counted,
+    and the host reads the live list's length once to start and once a
+    round."""
+    dem = torch.from_numpy(synthetic_dem(32, 40, seed=3))
+    launches = cterrain.accumulation.launches
+    stats = {}
+    with timing.recording() as rec:
+        tterrain.derive_terrain(dem, stats=stats)
+    counters = {s.name: s.counters for s in rec.spans}["terrain.accumulation"]
+    assert counters.get("fused", 0) == 0 and cterrain.accumulation.launches == launches
+    assert counters["host_reads"] == 1 + stats["rounds"] and counters["rounds"] == stats["rounds"] >= 1
+    assert counters["live_cells"] == sum(stats["live"])
+
+
+def test_accumulation_refuses_what_the_entry_cannot_take():
+    """The accumulation's successor must be int32 and contiguous, of fewer
+    than 2^31 cells (the sink and every flat index are int32), on any
+    device: anything else is refused before a round."""
+    succ = torch.full((6, 7), 42, dtype=torch.int32)
+    for accumulate in (cterrain.accumulation, cterrain.accumulation_plain):
+        with pytest.raises(ValueError, match="int32"):
+            accumulate(succ.long(), 3)
+        with pytest.raises(ValueError, match="contiguous"):
+            accumulate(succ.t(), 3)
+        with pytest.raises(ValueError, match="overflow"):
+            accumulate(torch.zeros(1, dtype=torch.int32).expand(1 << 31), 31)
+    with pytest.raises(ValueError, match="int32"):
+        tterrain.flow_accumulation(torch.zeros(6, 7, dtype=torch.int32), succ=succ.to(torch.int16))
+    fac, live = cterrain.accumulation(succ, 3)  # every cell a sink: no round
+    assert live == [] and torch.equal(fac, torch.zeros(42, dtype=torch.int32))
